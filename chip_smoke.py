@@ -10,13 +10,21 @@ Phases, each of which fails the run on a failed check:
                card, in bf16, at the shapes of the MicroDiT-XL sampling path;
                CUDA-event times of kernel, plain version and (attention only)
                F.scaled_dot_product_attention as the library yardstick.
+     The backward kernels likewise at every MicroDiT-XL stage-1 training shape
+               (microbatch 256) and the 512px ones, with SDPA's backward as the
+               attention yardstick.
   3. slice   - MicroDiT-XL at full width (256px, seeded init with the zero-init
                layers perturbed): one CFG forward through the kernels against the
                same forward through the plain versions, then generate() of 4
                prompts, 30 Heun steps, CFG 5.0, with the launch counts checked.
+  4. train   - the MicroDiT-XL stage-1 train step at full width and depth (mask
+               0.75, microbatch 256, AdamW 2.4e-4 / wd 0.1 / clip 0.25, cosine with
+               2500 warmup steps): one microbatch's loss and whole gradient through
+               the kernels against the plain versions, then a warm-up step and
+               timed steps with the launch counts checked, and a profiled step.
 
-Prints a `kernels` JSON line and the card's name and power limit before the
-last line, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
+Prints each phase's wall time, a `kernels` JSON line and the card's name and
+power limit before the last line, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, when there is no card or the package is not beside it.
 Imports nothing of JAX.
 """
@@ -40,8 +48,29 @@ ATTN_TOL = 2e-2  # max |kernel - plain|, bf16 outputs of magnitude <~ 1: a few b
 MOE_TOL = 2e-2   # same; one-ulp flips of bf16(a) between summation orders stay far below
 SLICE_TOL = 3e-2  # relative L2 of the XL CFG forward, kernel vs plain path, after 34
                   # blocks of bf16 rounding that differs between the two paths
+BWD_TOL = 1e-2  # max |kernel - plain| / max |plain| per gradient: dk, dv, dw are fp32
+                # sums over many rows stored in bf16 (one ulp = 2^-8 of an entry)
+TRAIN_LOSS_TOL = 1e-2  # relative, XL stage-1 loss of one microbatch, kernels vs plain
+TRAIN_GRAD_TOL = 5e-2  # relative L2 of the whole flattened gradient, kernels vs plain:
+                       # the forward's 34 blocks of differing bf16 rounding (rel L2
+                       # ~1.5e-2 at the output) compound again through the backward
 ATTN_REPLACES = "micro_diffusion_tpu/ops/flash_attention_lane.py:58"
 MOE_REPLACES = "micro_diffusion_tpu/ops/moe_ffn.py:74"
+ATTN_BWD_REPLACES = "micro_diffusion_tpu/ops/flash_attention_lane.py:80"
+MOE_BWD_REPLACES = "micro_diffusion_tpu/ops/moe_ffn.py:124"
+TRAIN_MB = 256  # the stage-1 recipe's per-device microbatch (res_256_pretrain.yaml:19)
+TRAIN_STEPS = 3  # timed steps after the warm-up step
+REMAT = True  # without block remat the mb-256 forward alone outgrows the 80 GB card
+              # (77 GiB allocated when it ran out, H100 80GB HBM3)
+ATTN_BWD_SHAPES = [  # (B, Tq, Tk, H): stage 1 at mb 256, then 512px
+    (256, 77, 77, 16), (256, 256, 256, 12), (256, 256, 77, 12), (256, 64, 64, 8),
+    (256, 64, 64, 10), (256, 64, 64, 12), (256, 64, 64, 14), (256, 64, 64, 16),
+    (256, 64, 77, 16), (8, 1024, 1024, 16), (8, 1024, 77, 16),
+]
+MOE_BWD_SHAPES = [  # (n, e, k, d, f): stage-1 mixer, two backbone widths, 512px
+    (256, 8, 64, 768, 3072), (256, 8, 16, 1024, 768), (256, 8, 16, 1024, 3840),
+    (8, 8, 256, 1024, 3840),
+]
 ATTN_SHAPES = [  # (Tq, Tk, H) at B = 8 (4 prompts x CFG)
     (256, 256, 8), (256, 256, 12), (256, 256, 16), (256, 77, 12), (256, 77, 16),
     (77, 77, 16), (1024, 1024, 16), (1024, 77, 16),
@@ -121,6 +150,22 @@ def moe_flops_bytes(n, e, k, d, f):
     return 4 * n * e * k * d * f, 2 * (2 * n * e * k * d + 2 * e * d * f)
 
 
+def attn_bwd_flops_bytes(b, tq, tk, h):
+    """5 products of 2*B*H*Tq*Tk*64; q, do read and dq written (Tq rows), k, v read
+    and dk, dv written (Tk rows), bf16."""
+    return 5 * 2 * b * h * tq * tk * 64, 2 * 64 * h * b * (3 * tq + 4 * tk)
+
+
+def moe_bwd_flops_bytes(n, e, k, d, f):
+    """The 4 gradient products and the recompute of a; x, do read and dx written,
+    w1, w2 read and dw1, dw2 written, bf16."""
+    return 5 * 2 * n * e * k * d * f, 2 * (3 * n * e * k * d + 4 * e * d * f)
+
+
+def rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
 def check_attention(shape, gen, b=8):
     import torch
     import torch.nn.functional as F
@@ -162,23 +207,74 @@ def check_moe(shape, gen, n=8, e=8):
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
+def check_attention_bwd(shape, gen):
+    import torch
+    import torch.nn.functional as F
+    fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
+
+    b, tq, tk, h = shape
+    q, k, v = attn_case(tq, tk, h, gen, b)
+    do = torch.randn(b, tq, h, 64, generator=gen, device="cuda").bfloat16()
+    got = fal.flash_attention_lane_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    ref = fal.flash_attention_lane_bwd_plain(q, k, v, do)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    if not all(math.isfinite(e) and e <= BWD_TOL for e in errs):
+        raise AssertionError(f"attention backward {shape}: rel errs (dq, dk, dv) {errs} "
+                             f"> {BWD_TOL}")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    del got, ref
+    ms = time_ms(lambda: fal.flash_attention_lane_bwd(q, k, v, do))
+    plain_ms = time_ms(lambda: fal.flash_attention_lane_bwd_plain(q, k, v, do), iters=3,
+                       warmup=1)
+    # the library yardstick: SDPA's backward alone, on a retained forward graph
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+    bound_ms, by = bound(*attn_bwd_flops_bytes(b, tq, tk, h))
+    return dict(B=b, Tq=tq, Tk=tk, H=h, max_abs_err=err, max_rel_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def check_moe_bwd(shape, gen):
+    import torch
+    mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+
+    n, e, k, d, f = shape
+    xg, w1, w2 = moe_case(k, d, f, gen, n, e)
+    do = torch.randn(n, e, k, d, generator=gen, device="cuda").bfloat16()
+    got = mf.moe_ffn_bwd(xg, w1, w2, do)
+    torch.cuda.synchronize()
+    ref = mf.moe_ffn_bwd_plain(xg, w1, w2, do)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    if not all(math.isfinite(e_) and e_ <= BWD_TOL for e_ in errs):
+        raise AssertionError(f"moe_ffn backward {shape}: rel errs (dx, dw1, dw2) {errs} "
+                             f"> {BWD_TOL}")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    del got, ref
+    ms = time_ms(lambda: mf.moe_ffn_bwd(xg, w1, w2, do), iters=10)
+    plain_ms = time_ms(lambda: mf.moe_ffn_bwd_plain(xg, w1, w2, do), iters=3, warmup=1)
+    bound_ms, by = bound(*moe_bwd_flops_bytes(n, e, k, d, f))
+    return dict(n=n, e=e, k=k, d=d, f=f, max_abs_err=err, max_rel_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
 # ------------------------------------------------------------------ slice
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's two kernel call sites to the kernels' plain versions."""
+    """Route the model's two kernel call sites to the kernels' plain versions,
+    forward and backward (the plain backwards run in the autograd Functions)."""
     from micro_diffusion_tpu_torch.models import layers
     from micro_diffusion_tpu_torch.ops import attention
 
-    flash_attention_lane = importlib.import_module(
-        "micro_diffusion_tpu_torch.ops.flash_attention_lane")
-    moe_ffn = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+    fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
+    mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
     saved = attention.flash_attention_lane, layers.moe_ffn
-    attention.flash_attention_lane = (
-        lambda q, k, v, scale=None: flash_attention_lane.flash_attention_lane_plain(
-            q, k, v, scale))
-    layers.moe_ffn = moe_ffn.moe_ffn_plain
+    attention.flash_attention_lane = fal.flash_attention_lane_reference
+    layers.moe_ffn = mf.moe_ffn_reference
     try:
         yield
     finally:
@@ -330,12 +426,186 @@ def profile_forward(model, x, sigma, y, top=12):
             f"{e.key[:110]}")
 
 
+# ------------------------------------------------------------------ train
+
+
+def kernel_counts():
+    fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
+    mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+    return {"attention": fal.flash_attention_lane, "attention_bwd": fal.flash_attention_lane_bwd,
+            "moe": mf.moe_ffn, "moe_bwd": mf.moe_ffn_bwd}
+
+
+def reset_counts():
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counts().items()}
+
+
+def train_batch(gen, b):
+    """Seeded stage-1 batch: latents (b, 4, 32, 32), caption latents (b, 1, 77, 1024),
+    10% of the captions dropped."""
+    import torch
+
+    return {
+        "image_latents": torch.randn(b, 4, 32, 32, generator=gen, device="cuda"),
+        "caption_latents": torch.randn(b, 1, 77, 1024, generator=gen, device="cuda"),
+        "drop_caption_mask": (torch.rand(b, generator=gen, device="cuda") >= 0.1).float(),
+    }
+
+
+def compare_train_grads(model, batch, gen):
+    """One microbatch's loss and whole gradient through the kernels and through the
+    plain versions, with the same injected draws."""
+    import torch
+    from micro_diffusion_tpu_torch.ops.masking import make_token_mask
+
+    b = batch["image_latents"].shape[0]
+    t = (32 // model.dit.patch_size) ** 2
+    draws = dict(rnd_normal=torch.randn(b, 1, 1, 1, generator=gen, device="cuda"),
+                 noise=torch.randn(b, 4, 32, 32, generator=gen, device="cuda"),
+                 token_mask=make_token_mask(gen, b, t, model.train_mask_ratio))
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def loss_and_grads():
+        loss, _, _ = model(batch, **draws)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_kernels():
+        loss_p, grads_p = loss_and_grads()
+    torch.cuda.synchronize()
+    diff2 = sum((gk.float() - gp.float()).square().sum() for gk, gp in zip(grads_k, grads_p))
+    ref2 = sum(gp.float().square().sum() for gp in grads_p)
+    rel_grad = (diff2.sqrt() / ref2.sqrt()).item()
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    log(f"[train] mb {b}, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+        f"(rel {rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); whole gradient rel L2 {rel_grad:.3e} "
+        f"(tol {TRAIN_GRAD_TOL}), |grad| {ref2.sqrt().item():.4e}, finite {finite}")
+    if not (finite and rel_loss <= TRAIN_LOSS_TOL and rel_grad <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train step kernels vs plain: loss rel {rel_loss}, "
+                             f"grad rel L2 {rel_grad}")
+    return dict(rel_loss=rel_loss, rel_grad=rel_grad)
+
+
+def run_train():
+    import torch
+    from micro_diffusion_tpu_torch.models.diffusion import create_latent_diffusion
+    from micro_diffusion_tpu_torch.train import (build_optimizer, build_schedule,
+                                                 create_train_state, make_train_step)
+
+    t0 = time.perf_counter()
+    model = create_latent_diffusion(dit_arch="MicroDiT_XL_2", latent_res=32,
+                                    train_mask_ratio=0.75, device="cuda", seed=SEED,
+                                    remat=REMAT)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    # with adaLN-zero every gate is 0 and no gradient reaches attention or MoE
+    perturb_zero_init(model.dit, gen)
+    batch = train_batch(gen, TRAIN_MB)
+    log(f"[train] MicroDiT-XL stage 1 on cuda, remat {REMAT}: built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cmp = compare_train_grads(model, batch, gen)
+
+    sched = build_schedule({"_target_": "composer.optim.CosineAnnealingWithWarmupScheduler",
+                            "t_warmup": "2500ba", "alpha_f": 0.33}, 2.4e-4, 250000)
+    tx = build_optimizer(dict(model.dit.named_parameters()), sched, weight_decay=0.1,
+                         betas=(0.9, 0.999), eps=1e-8, clip_norm=0.25)
+    state = create_train_state(model.dit, tx)
+    step_fn = make_train_step(model, tx, sched, microbatch_size=TRAIN_MB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(state):
+        state, m = step_fn(state, batch, gen)
+        m = {k: float(v) for k, v in m.items()}
+        log(f"[train] step {state.step - 1}: loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.6f} lr {m['lr']:.6e}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"non-finite train metrics {m}")
+        return state
+
+    # the path's kernel shapes, from one forward of the loss (under remat the
+    # backward re-runs each block's forward, which the hooks would count again)
+    with torch.no_grad(), record_shapes(model.dit) as (attn_shapes, moe_shapes):
+        model(batch, generator=gen)
+    per_fwd = (sum(attn_shapes.values()), sum(moe_shapes.values()))
+    if per_fwd != (69, 16):
+        raise AssertionError(f"XL train forward ran {per_fwd} attention/MoE calls, not (69, 16)")
+    state = step(state)  # warm-up (lr 0 at step 0)
+    sums = [p.detach().double().sum().item() for p in state.params.values()]
+
+    times = []
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if i == 0:
+            launches = counts
+            changed = sum(a != p.detach().double().sum().item()
+                          for a, p in zip(sums, state.params.values()))
+            log(f"[train] step 1 changed {changed} of {len(sums)} parameter tensors")
+            if changed < 0.9 * len(sums):
+                raise AssertionError(f"step 1 changed only {changed} of {len(sums)} params")
+    fwd_factor = 2 if REMAT else 1  # with remat the 34 blocks re-run their forward
+    want = {"attention": 69 + 68 * (fwd_factor - 1), "attention_bwd": 69,
+            "moe": 16 * fwd_factor, "moe_bwd": 16}
+    log(f"[train] launches per K=1 step {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"train step launch counts {launches} != {want}")
+    ms = sorted(times)[len(times) // 2] * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] stage 1, mb {TRAIN_MB}, K=1: step times "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
+        f"{TRAIN_MB / ms * 1e3:.2f} img/s; peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); remat {REMAT}")
+    profile_step(lambda: step(state))
+    return dict(attn_shapes=attn_shapes, moe_shapes=moe_shapes, launches=launches,
+                ms_per_step=ms, img_per_s=TRAIN_MB / ms * 1e3, peak_bytes=peak, **cmp)
+
+
+def profile_step(fn, top=15):
+    """One train step under torch.profiler: wall time, device busy time (sum of
+    kernel durations on the one stream), idle share, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        log(f"[profile] train step wall {wall:.2f} ms; device time not measured "
+            "(the profiler saw no kernels)")
+        return
+    log(f"[profile] XL stage-1 train step (mb {TRAIN_MB}): wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:110]}")
+
+
 # ------------------------------------------------------------------- main
 
 
-def summarize(name, source, replaces, per_shape, path_counts, launches, key, flops_bytes):
-    """One kernel entry: times and bounds summed over one forward's calls.
-    ``key(row)`` is a row's shape tuple, the arguments of ``flops_bytes``."""
+def summarize(name, source, replaces, per_shape, path_counts, launches, key, flops_bytes,
+              per):
+    """One kernel entry: times and bounds summed over the calls of one forward or
+    step (``per``). ``key(row)`` is a row's shape tuple, the arguments of
+    ``flops_bytes``."""
     rows = {key(r): r for r in per_shape}
     tot = collections.defaultdict(float)
     lib_known = True
@@ -357,7 +627,7 @@ def summarize(name, source, replaces, per_shape, path_counts, launches, key, flo
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
         else "bytes",
         "library_ms": tot["library_ms"] if lib_known else None,
-        "per": "one XL 256px CFG forward (B=8), summed over its calls",
+        "per": per,
         "shapes": per_shape,
     }
 
@@ -382,7 +652,7 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[device] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -391,8 +661,9 @@ def main():
                 log(f"[ptxas {name}] {line.strip()}")
 
     # ---- 2. kernels
+    t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    attn_rows, moe_rows = [], []
+    attn_rows, moe_rows, attn_bwd_rows, moe_bwd_rows = [], [], [], []
     for shape in ATTN_SHAPES:
         r = check_attention(shape, gen)
         attn_rows.append(r)
@@ -401,11 +672,28 @@ def main():
         r = check_moe(shape, gen)
         moe_rows.append(r)
         log(f"[kernels] moe_ffn {json.dumps(r)}")
+    for shape in ATTN_BWD_SHAPES:
+        r = check_attention_bwd(shape, gen)
+        attn_bwd_rows.append(r)
+        log(f"[kernels] attention_bwd {json.dumps(r)}")
+    for shape in MOE_BWD_SHAPES:
+        r = check_moe_bwd(shape, gen)
+        moe_bwd_rows.append(r)
+        log(f"[kernels] moe_ffn_bwd {json.dumps(r)}")
+    log(f"[phase] kernels {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 3. slice
+    t_phase = time.perf_counter()
     res = run_slice(STEPS, PROMPTS)
+    log(f"[phase] slice {time.perf_counter() - t_phase:.1f} s")
 
-    # time the path's shapes not already in the lists above
+    # ---- 4. train
+    t_phase = time.perf_counter()
+    tr = run_train()
+    log(f"[phase] train {time.perf_counter() - t_phase:.1f} s")
+
+    # time the paths' shapes not already in the lists above
+    t_phase = time.perf_counter()
     have = {(r["B"], r["Tq"], r["Tk"], r["H"]) for r in attn_rows}
     for (b, tq, tk, h) in sorted(res["attn_shapes"]):
         if (b, tq, tk, h) not in have:
@@ -414,17 +702,45 @@ def main():
     for (n, e, k, d, f) in sorted(res["moe_shapes"]):
         if (n, e, k, d, f) not in have:
             moe_rows.append(check_moe((k, d, f), gen, n, e))
+    have = {(r["B"], r["Tq"], r["Tk"], r["H"]) for r in attn_bwd_rows}
+    for shape in sorted(tr["attn_shapes"]):
+        if shape not in have:
+            attn_bwd_rows.append(check_attention_bwd(shape, gen))
+            log(f"[kernels] attention_bwd {json.dumps(attn_bwd_rows[-1])}")
+    have = {(r["n"], r["e"], r["k"], r["d"], r["f"]) for r in moe_bwd_rows}
+    for shape in sorted(tr["moe_shapes"]):
+        if shape not in have:
+            moe_bwd_rows.append(check_moe_bwd(shape, gen))
+            log(f"[kernels] moe_ffn_bwd {json.dumps(moe_bwd_rows[-1])}")
+    log(f"[phase] path shapes {time.perf_counter() - t_phase:.1f} s")
 
+    attn_key = lambda r: (r["B"], r["Tq"], r["Tk"], r["H"])
+    moe_key = lambda r: (r["n"], r["e"], r["k"], r["d"], r["f"])
+    fwd_per = "one XL 256px CFG forward (B=8), summed over its calls"
+    step_per = f"one XL stage-1 train step (mb {TRAIN_MB}, K=1), summed over its calls"
     kernels = [
         summarize("flash_attention_lane", "micro_diffusion_tpu_torch/csrc/flash_attention_lane.cu",
                   ATTN_REPLACES, attn_rows, res["attn_shapes"], res["launches"]["attention"],
-                  lambda r: (r["B"], r["Tq"], r["Tk"], r["H"]), attn_flops_bytes),
+                  attn_key, attn_flops_bytes, fwd_per),
         summarize("moe_ffn", "micro_diffusion_tpu_torch/csrc/moe_ffn.cu", MOE_REPLACES,
-                  moe_rows, res["moe_shapes"], res["launches"]["moe"],
-                  lambda r: (r["n"], r["e"], r["k"], r["d"], r["f"]), moe_flops_bytes),
+                  moe_rows, res["moe_shapes"], res["launches"]["moe"], moe_key,
+                  moe_flops_bytes, fwd_per),
+        summarize("flash_attention_lane_bwd",
+                  "micro_diffusion_tpu_torch/csrc/flash_attention_lane_bwd.cu",
+                  ATTN_BWD_REPLACES, attn_bwd_rows, tr["attn_shapes"],
+                  tr["launches"]["attention_bwd"], attn_key, attn_bwd_flops_bytes, step_per),
+        summarize("moe_ffn_bwd", "micro_diffusion_tpu_torch/csrc/moe_ffn_bwd.cu",
+                  MOE_BWD_REPLACES, moe_bwd_rows, tr["moe_shapes"], tr["launches"]["moe_bwd"],
+                  moe_key, moe_bwd_flops_bytes, step_per),
     ]
+    # the forward kernels also run in the train step: their launches there
+    kernels[0]["launches_train_step"] = tr["launches"]["attention"]
+    kernels[1]["launches_train_step"] = tr["launches"]["moe"]
     log(f"[slice] sampler {res['sampler_ms']:.1f} ms for {PROMPTS} images, "
         f"{res['img_per_s']:.4f} img/s at 256px; latents std {res['latents_std']:.4f}")
+    log(f"[train] stage 1 mb {TRAIN_MB}: {tr['ms_per_step']:.1f} ms/step, "
+        f"{tr['img_per_s']:.2f} img/s, peak {tr['peak_bytes'] / 2**30:.2f} GiB, remat {REMAT}")
+    log(f"[phase] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,17 @@
 one NVIDIA H100.
 
 It samples MicroDiT latents from precomputed caption embeddings (EDM Heun with
-classifier-free guidance); attention and the EC-MoE expert feed-forward run as
-hand-written Hopper kernels. It imports no JAX and nothing of micro_diffusion_tpu.
+classifier-free guidance) and runs the training step on precomputed latents
+(masked EDM loss, AdamW, clipping, EMA); attention and the EC-MoE expert
+feed-forward, forward and backward, run as hand-written Hopper kernels. It
+imports no JAX and nothing of micro_diffusion_tpu.
 
 Layout:
-    models/  - DiT backbone (layers.py, dit.py), EDM sampling wrapper
+    models/  - DiT backbone (layers.py, dit.py), EDM loss and sampling wrapper
                (diffusion.py), weight interop with JAX params and .pt files
-    ops/     - attention dispatch, flash attention and fused MoE FFN wrappers
+    ops/     - attention dispatch, flash attention and fused MoE FFN autograd
+               wrappers, token masking
+    train/   - schedules, AdamW and EMA (optim.py), the train step (train_step.py)
     csrc/    - the CUDA kernels, built with nvcc at first use (ops/_build.py)
 """
 

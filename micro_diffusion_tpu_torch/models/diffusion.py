@@ -1,7 +1,10 @@
-"""EDM latent-diffusion sampling in PyTorch, counterpart of
-micro_diffusion_tpu/models/diffusion.py (the serving path).
+"""EDM latent diffusion in PyTorch, counterpart of
+micro_diffusion_tpu/models/diffusion.py: the training loss and the sampler.
 
-``LatentDiffusion`` holds the DiT as a submodule. This slice samples latents
+``LatentDiffusion`` holds the DiT as a submodule. ``forward(batch)`` is the
+training loss on precomputed latents (``edm_loss``: log-normal sigma, the EDM
+weight, the masked patch-pooled loss, the caption drop); its sigma normal, noise
+and token mask come from a ``torch.Generator`` or are injected. The sampler
 from precomputed caption embeddings: ``generate(text_embeddings=...,
 return_only_latents=True)`` runs the EDM Heun sampler (with classifier-free
 guidance) as a Python loop over steps, with the Heun correction on every step
@@ -10,8 +13,7 @@ JAX package); the per-step scalars are rounded to float32 on the host as the
 JAX loop carries them, and x is carried in float32.
 
 Not ported yet, and raising here: prompt encoding and latent decoding (the text
-encoder and VAE wait for their weights, ROADMAP queue A item 7) and the
-training loss (the training slice).
+encoder and VAE wait for their weights, ROADMAP queue A item 7).
 """
 
 import dataclasses
@@ -85,12 +87,14 @@ class LatentDiffusion(nn.Module):
         self.latent_res = latent_res
         self.edm_config = EDMConfig(P_mean=p_mean, P_std=p_std)
         self.train_mask_ratio = train_mask_ratio
+        self.eval_mask_ratio = 0.0  # no masking during sampling/eval (model.py:88)
         self.latent_scale = 1.0 if latent_scale is None else latent_scale
 
     def model_forward_wrapper(self, x, sigma, y, cfg: float = 1.0,
-                              mask_ratio: float = 0.0) -> dict:
+                              mask_ratio: float = 0.0, **mask_kw) -> dict:
         """EDM preconditioning around the DiT call (reference model.py:144-179);
-        cfg != 1 runs the guided (batch-doubled) forward."""
+        cfg != 1 runs the guided (batch-doubled) forward. ``mask_kw`` (token_mask,
+        generator) goes to the DiT's masked forward."""
         ec = self.edm_config
         sd2 = ec.sigma_data**2
         sigma = sigma.float().reshape(-1, 1, 1, 1)
@@ -99,10 +103,64 @@ class LatentDiffusion(nn.Module):
         c_in = 1.0 / torch.sqrt(sd2 + sigma**2)
         c_noise = torch.log(sigma) / 4.0
         out = self.dit((c_in * x).to(x.dtype), c_noise.reshape(-1), y, cfg=cfg,
-                       mask_ratio=mask_ratio)
+                       mask_ratio=mask_ratio, **mask_kw)
         out = dict(out)
         out["sample"] = c_skip * x + c_out * out["sample"].float()
         return out
+
+    def edm_loss(self, x, y, mask_ratio: float = 0.0, *,
+                 generator: torch.Generator | None = None, rnd_normal=None, noise=None,
+                 token_mask=None):
+        """Log-normal-sigma EDM loss with mask-aware patch pooling (model.py:181-210).
+
+        ``rnd_normal`` (N, 1, 1, 1), ``noise`` (N, C, H, W) and ``token_mask`` are
+        drawn from ``generator`` when not given, in that order.
+        """
+        ec = self.edm_config
+        x = x.float()
+        y = y.float()
+        if rnd_normal is None:
+            rnd_normal = torch.randn((x.shape[0], 1, 1, 1), generator=generator,
+                                     device=x.device)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=x.device)
+        sigma = torch.exp(rnd_normal.float() * ec.P_std + ec.P_mean)
+        weight = (sigma**2 + ec.sigma_data**2) / (sigma * ec.sigma_data) ** 2
+        n = noise.float() * sigma
+        out = self.model_forward_wrapper(x + n, sigma, y, mask_ratio=mask_ratio,
+                                         token_mask=token_mask, generator=generator)
+        loss = weight * (out["sample"] - x) ** 2  # (N, C, H, W)
+        if mask_ratio > 0:
+            # per-patch pooled loss over the kept patches only (model.py:201-209)
+            p = self.dit.patch_size
+            loss = loss.mean(dim=1)  # (N, H, W)
+            n_, h, w = loss.shape
+            loss = loss.reshape(n_, h // p, p, w // p, p).mean(dim=(2, 4)).reshape(n_, -1)
+            unmask = 1.0 - out["mask"]
+            loss = (loss * unmask).sum(dim=1) / unmask.sum(dim=1)
+        return loss.mean()
+
+    def forward(self, batch: dict, generator: torch.Generator | None = None,
+                train: bool = True, **draws):
+        """Training/eval loss on precomputed latents (model.py:104-142).
+
+        batch: 'image_latents' (N, C, H, W), 'caption_latents' (N, 1, L, D) or
+        (N, L, D), optional 'drop_caption_mask' (N,) (0 drops the caption).
+        ``draws`` (rnd_normal, noise, token_mask) are injected into ``edm_loss``.
+        Returns (loss, latents, conditioning) as the reference does.
+        """
+        if "image_latents" not in batch or "caption_latents" not in batch:
+            raise NotImplementedError("training needs precomputed latents: "
+                                      + _ENCODERS_WAIT)
+        latents = batch["image_latents"]
+        conditioning = batch["caption_latents"]
+        if "drop_caption_mask" in batch:  # zero out dropped captions (model.py:131-135)
+            keep = batch["drop_caption_mask"].reshape((-1,) + (1,) * (conditioning.dim() - 1))
+            conditioning = conditioning * keep
+        loss = self.edm_loss(latents.float(), conditioning.float(),
+                             mask_ratio=self.train_mask_ratio if train else self.eval_mask_ratio,
+                             generator=generator, **draws)
+        return loss, latents, conditioning
 
     def _sigma_schedule(self, num_steps: int) -> np.ndarray:
         """rho-spaced sigma schedule, float64 on the host (reference model.py:246-254)."""

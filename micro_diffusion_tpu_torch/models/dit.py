@@ -2,9 +2,11 @@
 
 patchify -> pos-embed -> caption/timestep conditioning -> patch-mixer ->
 width-laddered adaLN-zero DiT blocks (self-attn + cross-attn + dense-or-EC-MoE
-FFN) -> final layer -> unpatchify. This slice serves sampling: the forward runs
-with mask_ratio 0; token masking, remat and the fused adaLN kernel come later and
-raise here. ``pos_embed`` is a computed constant (a non-persistent buffer), as in
+FFN) -> final layer -> unpatchify, with deferred token masking (mask_ratio > 0:
+the kept tokens are gathered after the patch mixer and scattered back after the
+final layer) and per-block rematerialisation (``remat=True``, policy 'full':
+``torch.utils.checkpoint``). The other remat policies and the fused adaLN kernel
+are not ported yet and raise. ``pos_embed`` is a computed constant (a non-persistent buffer), as in
 the JAX package, so converted weights and released checkpoints load strictly.
 """
 
@@ -13,6 +15,9 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.masking import TokenMask, gather_tokens, make_token_mask, scatter_tokens
 
 from .layers import (
     XAVIER,
@@ -147,10 +152,11 @@ class DiT(nn.Module):
                  fused_adaln: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
-        if remat:
+        if remat and remat_policy != "full":
             raise NotImplementedError(
-                f"remat (policy {remat_policy!r}) comes with the training slice "
+                f"remat policy {remat_policy!r} is not ported; only 'full' is "
                 "(ROADMAP queue A, item 2)")
+        self.remat = remat
         for impl in (attention_impl, xattn_attention_impl):
             if impl in _UNPORTED_ATTENTION:
                 raise NotImplementedError(
@@ -249,17 +255,24 @@ class DiT(nn.Module):
         x = torch.einsum("nhwpqc->nchpwq", x)
         return x.reshape(x.shape[0], c, h * p, w * p)
 
-    def forward_without_cfg(self, x, t, y, mask_ratio: float = 0.0) -> dict:
+    def _run_block(self, block, x, y, c):
+        """One DiT block; with remat its activations are recomputed in the backward
+        (the JAX package's nn.remat with the 'full' policy)."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, y, c, use_reentrant=False)
+        return block(x, y, c)
+
+    def forward_without_cfg(self, x, t, y, mask_ratio: float = 0.0,
+                            token_mask: TokenMask | None = None,
+                            generator: torch.Generator | None = None) -> dict:
         """Unguided forward pass (reference dit.py:455-519).
 
         x: (B, C, H, W) noisy latents; t: () or (B,) EDM c_noise values;
         y: (B, 1, L, cap_dim) or (B, L, cap_dim) caption embeddings.
-        Returns {'sample': (B, C, H, W) fp32, 'mask': None}.
+        mask_ratio > 0 keeps T * (1 - mask_ratio) tokens through the backbone: the
+        keep-set is ``token_mask`` when given, else drawn from ``generator``.
+        Returns {'sample': (B, C, H, W) fp32, 'mask': (B, T) or None}.
         """
-        if mask_ratio > 0:
-            raise NotImplementedError(
-                "token masking (mask_ratio > 0) comes with the training slice "
-                "(ROADMAP queue A, item 2)")
         b = x.shape[0]
         x = self.x_embedder(x) + self.pos_embed.to(self.dtype)
         t = self.t_embedder(torch.broadcast_to(t.reshape(-1), (b,)))
@@ -274,13 +287,27 @@ class DiT(nn.Module):
                 x = self.patch_mixer_map_xin(x)
                 y_mixer = self.patch_mixer_map_y(y)
             for block in self.patch_mixer:
-                x = block(x, y_mixer, c)
-            if self.patch_mixer_map_xout is not None:
-                x = self.patch_mixer_map_xout(x)
+                x = self._run_block(block, x, y_mixer, c)
+
+        mask = None
+        if mask_ratio > 0:
+            if token_mask is None:
+                if generator is None:
+                    raise ValueError("mask_ratio > 0 needs a token_mask or a generator")
+                token_mask = make_token_mask(generator, b, x.shape[1], mask_ratio)
+            mask = token_mask.mask
+            x = gather_tokens(x, token_mask.ids_keep)
+        # back to the backbone width after masking, to save compute (dit.py:506-508)
+        if self.use_patch_mixer and self.patch_mixer_map_xout is not None:
+            x = self.patch_mixer_map_xout(x)
+
         for block in self.blocks:
-            x = block(x, y, c)
+            x = self._run_block(block, x, y, c)
         x = self.final_layer(x, c)
-        return {"sample": self.unpatchify(x.float()), "mask": None}
+        if mask_ratio > 0:
+            mask_token = torch.zeros(1, 1, x.shape[-1], device=x.device)
+            x = scatter_tokens(x, token_mask.ids_restore, mask_token)
+        return {"sample": self.unpatchify(x.float()), "mask": mask}
 
     def forward_with_cfg(self, x, t, y, cfg: float = 1.0, mask_ratio: float = 0.0) -> dict:
         """Classifier-free guidance by batch doubling (reference dit.py:521-550)."""
@@ -293,11 +320,14 @@ class DiT(nn.Module):
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         return {"sample": uncond_eps + cfg * (cond_eps - uncond_eps)}
 
-    def forward(self, x, t, y, cfg: float = 1.0, mask_ratio: float = 0.0) -> dict:
-        """Routes on the cfg scale (reference dit.py:552-564)."""
+    def forward(self, x, t, y, cfg: float = 1.0, mask_ratio: float = 0.0,
+                token_mask: TokenMask | None = None,
+                generator: torch.Generator | None = None) -> dict:
+        """Routes on the cfg scale (reference dit.py:552-564); the mask arguments
+        go to the unguided forward (masking is a training-time option)."""
         if cfg != 1.0:
             return self.forward_with_cfg(x, t, y, cfg, mask_ratio)
-        return self.forward_without_cfg(x, t, y, mask_ratio)
+        return self.forward_without_cfg(x, t, y, mask_ratio, token_mask, generator)
 
 
 def _zoo(depth, dim, head_dim, multiple_of, mixer_depth, mixer_dim, qkv_ratio, mlp_ratio,

@@ -159,7 +159,7 @@ class FeedForward(nn.Module):
         super().__init__()
         if remat_hidden:
             raise NotImplementedError(
-                "remat policies come with the training slice (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
         hidden = self.rounded_hidden(hidden_dim, multiple_of)
         self.w1 = Linear(dim, hidden, use_bias, init=w1_init, dtype=dtype, device=device)
         self.w2 = Linear(dim, hidden, use_bias, init=w2_init, dtype=dtype, device=device)
@@ -179,7 +179,10 @@ class FeedForwardECMoe(nn.Module):
     JAX package's default 'onehot' dispatch (layers.py:412-474): each expert picks
     its top-k tokens per sample (k = capacity * T / E); per-sample one-hot matmuls
     gather them into sample-major (n, e, k, d) rows for the fused expert kernel
-    (ops/moe_ffn.py) and combine the gate-weighted outputs back."""
+    (ops/moe_ffn.py) and combine the gate-weighted outputs back. The gradient
+    into the gate flows through topk's values and the gate-weighted combine; the
+    one-hot matrix is built from indices and carries none (JAX's stop_gradient,
+    layers.py:439)."""
 
     def __init__(self, num_experts: int, expert_capacity: float, dim: int,
                  hidden_dim: int, multiple_of: int, w2_init=XAVIER,
@@ -192,7 +195,7 @@ class FeedForwardECMoe(nn.Module):
                 "(ROADMAP queue A, item 2)")
         if remat_experts:
             raise NotImplementedError(
-                "remat policies come with the training slice (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
         hidden = multiple_of * ((hidden_dim + multiple_of - 1) // multiple_of)
         self.num_experts = num_experts
         self.expert_capacity = expert_capacity
@@ -241,7 +244,7 @@ class SelfAttention(nn.Module):
         super().__init__()
         if remat_proj:
             raise NotImplementedError(
-                "remat policies come with the training slice (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
         hidden = hidden_dim or dim
         assert hidden % num_heads == 0
         self.num_heads = num_heads
@@ -276,7 +279,7 @@ class CrossAttention(nn.Module):
         super().__init__()
         if remat_proj:
             raise NotImplementedError(
-                "remat policies come with the training slice (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
         hidden = hidden_dim or dim
         assert hidden % num_heads == 0
         self.num_heads = num_heads

@@ -20,7 +20,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_attention_lane", "moe_ffn")
+SOURCES = ("flash_attention_lane", "flash_attention_lane_bwd", "moe_ffn", "moe_ffn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +73,17 @@ def build_all() -> dict:
     with _lock:
         started = {n: _start(n) for n in SOURCES}
         return {n: _finish(n, *started[n]) for n in SOURCES}
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, its argument types set
+    (ctypes.c_void_p for every pointer and the stream, c_int, c_float) and an int
+    (CUDA error) result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def load(name: str) -> ctypes.CDLL:

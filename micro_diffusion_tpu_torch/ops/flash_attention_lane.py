@@ -1,15 +1,22 @@
-"""Flash attention forward for head_dim 64 on the natural (B, T, H, D) layout.
+"""Flash attention for head_dim 64 on the natural (B, T, H, D) layout.
 
-Counterpart of ``micro_diffusion_tpu/ops/flash_attention_lane.py`` (forward only).
-On a CUDA tensor :func:`flash_attention_lane` launches the hand-written Hopper
-kernel in ``csrc/flash_attention_lane.cu``; on a CPU tensor it runs
-:func:`flash_attention_lane_plain`, the same contract in plain PyTorch:
+Counterpart of ``micro_diffusion_tpu/ops/flash_attention_lane.py``, forward and
+backward. :func:`flash_attention_lane` is a ``torch.autograd.Function`` that
+saves q, k, v (as the JAX rule does) and recomputes the softmax in the backward.
+On CUDA tensors the forward launches the hand-written Hopper kernel in
+``csrc/flash_attention_lane.cu`` and the backward the one in
+``csrc/flash_attention_lane_bwd.cu``; on CPU tensors both run their plain
+PyTorch versions. Forward contract:
 
     e = exp2((s - rowmax(s)) * scale * log2(e)),  s = q k^T in fp32
     out = (bf16(e) @ v, fp32 accumulation) / rowsum(e)
 
-The backward kernel (the TPU kernel's ``_bwd_kernel``) comes with the training
-slice, so a CUDA input that requires grad raises.
+Backward contract (the TPU kernel's ``_bwd_kernel``), with inv_l = 1 / rowsum(e):
+
+    dv = bf16(e)^T @ bf16(do * inv_l)
+    dp = do @ v^T (fp32),  delta = rowsum(e * dp) * inv_l
+    ds_u = bf16(e * (dp - delta))
+    dq = (ds_u @ k) * scale * inv_l,  dk = ds_u^T @ bf16(q * scale * inv_l)
 """
 
 import ctypes
@@ -21,6 +28,7 @@ from . import _build
 
 _LOG2E = math.log2(math.e)
 _SRC = "flash_attention_lane"
+_SRC_BWD = "flash_attention_lane_bwd"
 
 
 def supported(h: int, d: int) -> bool:
@@ -28,10 +36,13 @@ def supported(h: int, d: int) -> bool:
     return d == 64 and h % 2 == 0
 
 
+def _default_scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
 def flash_attention_lane_plain(q, k, v, scale=None):
-    """The kernel's contract in plain PyTorch (any device, any float dtype)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+    """The forward kernel's contract in plain PyTorch (any device, any float dtype)."""
+    scale = _default_scale(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp2((s - m) * (scale * _LOG2E))
@@ -40,14 +51,35 @@ def flash_attention_lane_plain(q, k, v, scale=None):
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _lib():
-    lib = _build.load(_SRC)
-    fn = lib.flash_attention_lane_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def flash_attention_lane_bwd_plain(q, k, v, do, scale=None):
+    """The backward kernel's contract in plain PyTorch, op for op as the TPU
+    kernel's ``_bwd_kernel``: (dq, dk, dv) in q's, k's and v's dtypes."""
+    scale = _default_scale(q, scale)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2((s - m) * (scale * _LOG2E))
+    inv_l = 1.0 / e.sum(dim=-1, keepdim=True)                   # (B, H, Tq, 1)
+    dof = do.float().permute(0, 2, 1, 3)                        # (B, H, Tq, D)
+    dv = torch.einsum("bhqk,bhqd->bkhd", e.to(do.dtype).float(),
+                      (dof * inv_l).to(do.dtype).float())
+    dp = torch.einsum("bhqd,bkhd->bhqk", dof, v.float())
+    delta = (e * dp).sum(dim=-1, keepdim=True) * inv_l
+    ds_u = (e * (dp - delta)).to(q.dtype).float()
+    cb = scale * inv_l
+    dq = torch.einsum("bhqk,bkhd->bhqd", ds_u, k.float()) * cb
+    qm = (q.float().permute(0, 2, 1, 3) * cb).to(q.dtype).float()
+    dk = torch.einsum("bhqk,bhqd->bkhd", ds_u, qm)
+    return dq.permute(0, 2, 1, 3).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_rows(name, x):
+    # rows are copied 16 bytes at a time: the head dim must be contiguous and
+    # every row start 16-byte aligned
+    if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+        raise ValueError(f"{name} must have a contiguous head dim and 16-byte "
+                         f"aligned rows, got strides {x.stride()}")
+    if max(x.stride()[:3]) >= 2**31:
+        raise ValueError(f"{name} strides overflow int32")
 
 
 def _check(q, k, v):
@@ -65,33 +97,27 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        # rows are copied 16 bytes at a time: the head dim must be contiguous and
-        # every row start 16-byte aligned
-        if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(f"{name} must have a contiguous head dim and 16-byte "
-                             f"aligned rows, got strides {x.stride()}")
-        if max(x.stride()[:3]) >= 2**31:
-            raise ValueError(f"{name} strides overflow int32")
+        _check_rows(name, x)
 
 
-def flash_attention_lane(q, k, v, scale=None):
-    """Non-causal MHA, (B, T, H, 64) in and out, H even."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_lane_plain(q, k, v, scale)
+def _on_card(q):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+
+
+def _forward(q, k, v, scale):
+    """Forward on q's device: the plain version on the CPU, the kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_lane_plain(q, k, v, scale)
+    _on_card(q)
     _check(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention_lane has no backward kernel yet (ROADMAP queue B, K1b)")
     b, tq, h, d = q.shape
     tk = k.shape[1]
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    fn = _lib()
+    fn = _build.function(_SRC, "flash_attention_lane_fwd",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk, h,
@@ -103,4 +129,80 @@ def flash_attention_lane(q, k, v, scale=None):
     return o
 
 
+def flash_attention_lane_bwd(q, k, v, do, scale=None):
+    """(dq, dk, dv) of the attention at (q, k, v) for the output cotangent ``do``:
+    the plain version on CPU tensors, the backward kernel on the card."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_lane_bwd_plain(q, k, v, do, scale)
+    _on_card(q)
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q")
+    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
+        do = do.contiguous()  # the cotangent comes in whatever strides autograd made
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # per (batch, head, query row): the row max, 1/rowsum(e) and delta
+    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=q.device)
+    fn = _build.function(_SRC_BWD, "flash_attention_lane_bwd",
+             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 25 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, tq, tk, h,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                 *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_lane backward kernel launch failed: "
+                           f"CUDA error {err}")
+    flash_attention_lane_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _LaneAttention(torch.autograd.Function):
+    """Saves q, k, v; the backward recomputes the softmax (no saved logsumexp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, fwd, bwd):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.bwd = scale, bwd
+        return fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, do, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def flash_attention_lane(q, k, v, scale=None):
+    """Non-causal MHA, (B, T, H, 64) in and out, H even; differentiable. On CUDA
+    tensors forward and backward run the kernels (or raise)."""
+    scale = _default_scale(q, scale)
+    if _needs_grad(q, k, v):
+        return _LaneAttention.apply(q, k, v, scale, _forward, flash_attention_lane_bwd)
+    return _forward(q, k, v, scale)
+
+
+def flash_attention_lane_reference(q, k, v, scale=None):
+    """The plain forward and the plain backward as one differentiable function, on
+    any device: what the card's path is held against (chip_smoke.py)."""
+    scale = _default_scale(q, scale)
+    if _needs_grad(q, k, v):
+        return _LaneAttention.apply(q, k, v, scale, flash_attention_lane_plain,
+                                    flash_attention_lane_bwd_plain)
+    return flash_attention_lane_plain(q, k, v, scale)
+
+
 flash_attention_lane.launches = 0
+flash_attention_lane_bwd.launches = 0

@@ -80,5 +80,6 @@ def test_port_imports_no_jax():
         "       or n == 'micro_diffusion_tpu' or n.startswith('micro_diffusion_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'micro_diffusion_tpu_torch.models.diffusion' in sys.modules\n"
+        "assert 'micro_diffusion_tpu_torch.train.train_step' in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -122,14 +122,41 @@ def test_init_shapes_and_zero_layers():
 
 
 def test_unported_modes_raise():
-    for kw in (dict(remat=True), dict(fused_adaln=True), dict(moe_dispatch="gather"),
-               dict(attention_impl="flash_bh"), dict(attention_impl="flash_bthd")):
+    """Modes whose kernels or policies are not ported raise naming the ROADMAP; the
+    ones ported with the training slice (remat 'full', mask_ratio > 0) run."""
+    for kw in (dict(remat=True, remat_policy="dots"), dict(fused_adaln=True),
+               dict(moe_dispatch="gather"), dict(attention_impl="flash_bh"),
+               dict(attention_impl="flash_bthd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta", **kw)
-    model = tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward_without_cfg(torch.zeros(1, 4, 16, 16), torch.zeros(1),
-                                  torch.zeros(1, 8, 32), mask_ratio=0.5)
+    model = tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="cpu",
+                                  remat=True).init_weights(torch.Generator().manual_seed(0))
+    x = torch.zeros(1, 4, 16, 16, requires_grad=True)
+    out = model.forward_without_cfg(x, torch.zeros(1), torch.zeros(1, 8, 32), mask_ratio=0.5,
+                                    generator=torch.Generator().manual_seed(1))
+    assert out["sample"].shape == (1, 4, 16, 16) and out["mask"].sum() == 32
+    out["sample"].sum().backward()
+    assert x.grad is not None
+    with pytest.raises(ValueError, match="generator"):
+        model.forward_without_cfg(x, torch.zeros(1), torch.zeros(1, 8, 32), mask_ratio=0.5)
+
+
+@pytest.mark.parametrize("mask_ratio", [0.0, 0.75])
+def test_remat_changes_no_numbers(mask_ratio):
+    """Per-block checkpointing ('full') gives the same loss gradients as no remat
+    (fp32, exact up to 1e-6: the recomputed forward is the same arithmetic)."""
+    kw = dict(input_size=16, caption_channels=32, device="cpu", dtype=torch.float32)
+    plain = tdit.MicroDiT_Micro_2(**kw).init_weights(torch.Generator().manual_seed(2))
+    remat = tdit.MicroDiT_Micro_2(remat=True, **kw)
+    remat.load_state_dict(plain.state_dict())
+    x, y = torch.from_numpy(rand((2, 4, 16, 16), 3)), torch.from_numpy(rand((2, 8, 32), 4))
+    grads = []
+    for model in (plain, remat):
+        out = model(x, torch.zeros(2), y, mask_ratio=mask_ratio,
+                    generator=torch.Generator().manual_seed(5))["sample"]
+        grads.append(torch.autograd.grad(out.square().mean(), list(model.parameters())))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 def test_load_torch_checkpoint_strict(tmp_path):

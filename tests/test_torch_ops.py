@@ -87,15 +87,18 @@ def test_supported_agrees_with_jax():
 
 
 def test_cpu_tensors_never_launch_kernels():
-    before = tlane.flash_attention_lane.launches, tmoe.moe_ffn.launches
-    q = torch.from_numpy(rand((1, 64, 2, 64), 6))
-    tlane.flash_attention_lane(q, q, q)
+    counters = (tlane.flash_attention_lane, tlane.flash_attention_lane_bwd, tmoe.moe_ffn,
+                tmoe.moe_ffn_bwd)
+    before = [fn.launches for fn in counters]
+    q = torch.from_numpy(rand((1, 64, 2, 64), 6)).requires_grad_()
+    tlane.flash_attention_lane(q, q, q).sum().backward()
     tattention.dot_product_attention(q, q, q, impl="flash_lane")
     x = torch.from_numpy(rand((2, 2, 16, 128), 7)).bfloat16()
-    w1 = torch.from_numpy(rand((2, 128, 256), 8)).bfloat16()
+    w1 = torch.from_numpy(rand((2, 128, 256), 8)).bfloat16().requires_grad_()
     w2 = torch.from_numpy(rand((2, 256, 128), 9)).bfloat16()
-    tmoe.moe_ffn(x, w1, w2)
-    assert (tlane.flash_attention_lane.launches, tmoe.moe_ffn.launches) == before
+    tmoe.moe_ffn(x, w1, w2).float().sum().backward()
+    assert q.grad is not None and w1.grad is not None
+    assert [fn.launches for fn in counters] == before
 
 
 def test_unported_attention_impls_raise():

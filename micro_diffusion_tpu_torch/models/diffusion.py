@@ -249,6 +249,7 @@ def create_latent_diffusion(
     in_channels: int = 4,
     pos_interp_scale: float = 1.0,
     dtype: str = "bfloat16",
+    precomputed_latents: bool = True,
     p_mean: float = -0.6,
     p_std: float = 1.2,
     train_mask_ratio: float = 0.0,
@@ -261,13 +262,16 @@ def create_latent_diffusion(
     device=None,
     seed: int = 0,
 ) -> LatentDiffusion:
-    """Model factory with the reference signature (model.py:356-405).
+    """Model factory with the reference signature (model.py:356-405); takes every
+    key of a recipe's model block (configs/base.yaml) as it is written.
 
     Builds the DiT on ``device`` (the card when None; raises if there is none) and
     initialises it with the JAX package's initialisers from a generator seeded
-    with ``seed``. Load trained weights afterwards (models/interop.py).
+    with ``seed``. Load trained weights afterwards (models/interop.py). The model
+    trains on precomputed latents only (``precomputed_latents`` False raises, as
+    does ``load_encoders``: the encoders wait for their weights).
     """
-    if load_encoders:
+    if load_encoders or not precomputed_latents:
         raise NotImplementedError(_ENCODERS_WAIT)
     device = resolve_device(device)
     _, cap_dim = text_encoder_embedding_format(text_encoder_name)

@@ -4,18 +4,21 @@ patchify -> pos-embed -> caption/timestep conditioning -> patch-mixer ->
 width-laddered adaLN-zero DiT blocks (self-attn + cross-attn + dense-or-EC-MoE
 FFN) -> final layer -> unpatchify, with deferred token masking (mask_ratio > 0:
 the kept tokens are gathered after the patch mixer and scattered back after the
-final layer) and per-block rematerialisation (``remat=True``, policy 'full':
-``torch.utils.checkpoint``). The other remat policies and the fused adaLN kernel
-are not ported yet and raise. ``pos_embed`` is a computed constant (a non-persistent buffer), as in
+final layer) and per-block rematerialisation (``remat=True``: per-block
+``torch.utils.checkpoint``; policy 'full' recomputes the whole block, 'dots'
+keeps the 2-D products' outputs). The other remat policies are not ported yet
+and raise. ``pos_embed`` is a computed constant (a non-persistent buffer), as in
 the JAX package, so converted weights and released checkpoints load strictly.
 """
 
+import functools
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.masking import TokenMask, gather_tokens, make_token_mask, scatter_tokens
 
@@ -41,12 +44,11 @@ from .layers import (
 
 def resolve_device(device) -> torch.device:
     """``device``, or the card when None; never drops to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
-                               "on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
 
 
 def qkv_hidden_dim(dim: int, qkv_ratio: float, head_dim: int) -> int:
@@ -132,6 +134,19 @@ def _moe_block_flags(depth: int, experts_every_n: int, *, skip_last: bool) -> li
 
 
 _UNPORTED_ATTENTION = ("flash_bh", "flash_bthd")
+_REMAT_POLICIES = ("full", "dots")
+# JAX's dots_with_no_batch_dims_saveable: the Linears' products are the 2-D ones
+# (a 3-D input is folded to rows); the batched bmm/einsum products, the hand
+# kernels and the elementwise ops are recomputed.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 class DiT(nn.Module):
@@ -152,11 +167,12 @@ class DiT(nn.Module):
                  fused_adaln: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
-        if remat and remat_policy != "full":
+        if remat and remat_policy not in _REMAT_POLICIES:
             raise NotImplementedError(
-                f"remat policy {remat_policy!r} is not ported; only 'full' is "
-                "(ROADMAP queue A, item 2)")
+                f"remat policy {remat_policy!r} is not ported; only "
+                f"{_REMAT_POLICIES} are (ROADMAP queue A, item 2)")
         self.remat = remat
+        self.remat_policy = remat_policy
         for impl in (attention_impl, xattn_attention_impl):
             if impl in _UNPORTED_ATTENTION:
                 raise NotImplementedError(
@@ -257,10 +273,13 @@ class DiT(nn.Module):
 
     def _run_block(self, block, x, y, c):
         """One DiT block; with remat its activations are recomputed in the backward
-        (the JAX package's nn.remat with the 'full' policy)."""
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, y, c, use_reentrant=False)
-        return block(x, y, c)
+        (the JAX package's nn.remat): all of them under 'full', all but the 2-D
+        products' outputs under 'dots' (a selective-checkpoint context)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(x, y, c)
+        if self.remat_policy == "dots":
+            return checkpoint(block, x, y, c, use_reentrant=False, context_fn=_dots_context)
+        return checkpoint(block, x, y, c, use_reentrant=False)
 
     def forward_without_cfg(self, x, t, y, mask_ratio: float = 0.0,
                             token_mask: TokenMask | None = None,

@@ -3,7 +3,8 @@
 Numerics follow the JAX package's dtype policy, written out: parameters are fp32;
 each Linear casts its input, weight and bias to the compute dtype (bf16 by
 default); LayerNorm statistics and the attention softmax are fp32, and LayerNorm
-casts back to its input dtype before modulate. There is no autocast.
+casts back to its input dtype before modulate (the fused adaLN kernel, behind
+``fused_adaln``, rounds once after it). There is no autocast.
 
 Parameter names are the reference's torch state-dict names (``blocks.3.attn.qkv``,
 ``t_embedder.mlp.0``, ``adaLN_modulation.1``, the 3-D MoE ``mlp.w1``/``mlp.w2``),
@@ -22,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.adaln import layernorm_modulate
 from ..ops.attention import dot_product_attention
 from ..ops.moe_ffn import moe_ffn
 
@@ -90,15 +92,14 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics, optional affine scale (no bias), output cast
-    back to the input dtype; called with (shift, scale) it also modulates."""
+    back to the input dtype; called with (shift, scale) it also modulates. With
+    ``fused_adaln`` the modulated call is the fused kernel (ops/adaln.py), whose
+    contract rounds once, after the modulate (JAX layers.py:106-114)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, use_scale: bool = True,
                  fused_adaln: bool = False, device=None):
         super().__init__()
-        if fused_adaln:
-            raise NotImplementedError(
-                "fused_adaln needs the layernorm_modulate kernel, not ported yet "
-                "(ROADMAP queue B, K6)")
+        self.fused_adaln = fused_adaln
         self.eps = eps
         if use_scale:
             self.weight = nn.Parameter(torch.empty(dim, device=device))
@@ -111,6 +112,8 @@ class LayerNorm(nn.Module):
                 self.weight.fill_(1.0)
 
     def forward(self, x, shift=None, scale=None):
+        if shift is not None and self.fused_adaln:
+            return layernorm_modulate(x, self.weight, shift, scale, self.eps)
         # the JAX package's formula, op for op (F.layer_norm's Welford variance
         # rounds differently, enough to flip bf16 roundings downstream)
         x32 = x.float()

@@ -165,10 +165,13 @@ class AdamW:
         names = list(params)
         if self.clip_norm is not None:
             norm = global_norm(grads[n] for n in names) if grad_norm is None else grad_norm
-            if not bool(norm < self.clip_norm):
-                gl = [grads[n] for n in names]
-                torch._foreach_div_(gl, float(norm))
-                torch._foreach_mul_(gl, float(self.clip_norm))
+            # optax's select(norm < max_norm, g, g / norm * max_norm) on the device,
+            # with no host sync: below the threshold g is divided and multiplied by 1
+            keep = norm < self.clip_norm
+            one = torch.ones_like(norm)
+            gl = [grads[n] for n in names]
+            torch._foreach_div_(gl, torch.where(keep, one, norm))
+            torch._foreach_mul_(gl, torch.where(keep, one, torch.full_like(norm, self.clip_norm)))
         count_inc = state.count + 1
         b1, b2 = self.b1, self.b2
         c32 = np.float32(count_inc)

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions at the
-MicroDiT-XL sampling (forward) and stage-1 training (backward) shapes, in bf16 on
-the card. Marked `cuda`: each test skips
+MicroDiT-XL sampling (forward) and stage-1 training (backward, fused adaLN) shapes,
+in bf16 on the card. Marked `cuda`: each test skips
 without a card (decided inside the test). Run on the card with
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
@@ -13,6 +13,7 @@ import torch
 
 tlane = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
 tmoe = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+tadaln = importlib.import_module("micro_diffusion_tpu_torch.ops.adaln")
 
 # bf16 outputs of magnitude <~ 1: a few bf16 ulps (the kernel's online softmax and
 # summation order differ from the plain version's)
@@ -138,3 +139,44 @@ def test_kernels_refuse_what_they_do_not_take():
     assert (tmoe.moe_ffn.launches, tmoe.moe_ffn_bwd.launches) == (before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError):
         tmoe.moe_ffn(xg.float(), w1.float(), w2.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_weight", [True, False])
+@pytest.mark.parametrize("b,t,d", [(256, 256, 768), (256, 64, 1024), (16, 256, 512),
+                                   (32, 1024, 768), (3, 5, 8)])
+def test_layernorm_modulate_kernel_matches_plain(b, t, d, use_weight):
+    """K6 at the trainer path's shapes (and a ragged small one), shift and scale as
+    strided chunks of one (B, 6D) projection, as the DiT block hands them over.
+    Tolerance relative to the largest output entry: the output is rounded to bf16
+    once (2^-8 of an entry); a backward through autograd launches once more."""
+    gen = _card()
+    x = torch.randn(b, t, d, generator=gen, device="cuda").bfloat16()
+    mod = (0.5 * torch.randn(b, 6 * d, generator=gen, device="cuda")).bfloat16()
+    shift, scale = mod.chunk(6, dim=1)[:2]
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")) if use_weight else None
+    before = tadaln.layernorm_modulate.launches
+    out = tadaln.layernorm_modulate(x, w, shift, scale)
+    torch.cuda.synchronize()
+    assert tadaln.layernorm_modulate.launches == before + 1
+    ref = tadaln.layernorm_modulate_plain(x, w, shift, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert _rel_err(out, ref) <= BWD_TOL
+    xg = x.clone().requires_grad_()
+    tadaln.layernorm_modulate(xg, w, shift, scale).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert tadaln.layernorm_modulate.launches == before + 2
+    assert torch.isfinite(xg.grad.float()).all()
+
+
+@pytest.mark.cuda
+def test_layernorm_modulate_refuses_what_it_does_not_take():
+    _card()
+    x = torch.zeros(2, 4, 64, device="cuda")
+    s = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(TypeError):
+        tadaln.layernorm_modulate(x, None, s, s)  # fp32
+    xb = torch.zeros(2, 4, 1032, device="cuda", dtype=torch.bfloat16)
+    sb = torch.zeros(2, 1032, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        tadaln.layernorm_modulate(xb, None, sb, sb)  # D above the register row

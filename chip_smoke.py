@@ -16,6 +16,8 @@ Phases, each of which fails the run on a failed check:
      The fused adaLN LayerNorm+modulate kernel (K6) likewise at every shape the
                trainer path runs (XL stage 1, the Tiny round trip) and one 512px
                shape (no PyTorch call computes it: no library yardstick).
+     The expert-major MoE kernels (K3) and the whole-K attention (K4), forward and
+               backward, at the shapes phases 7-9 record (SDPA as K4's yardstick).
   3. slice   - MicroDiT-XL at full width (256px, seeded init with the zero-init
                layers perturbed): one CFG forward through the kernels against the
                same forward through the plain versions, then generate() of 4
@@ -34,6 +36,23 @@ Phases, each of which fails the run on a failed check:
                ratio, and 3 with remat 'full' for the peaks and times.
   6. resume  - MicroDiT-Tiny through the entry point: 4 steps straight against 2
                steps, a checkpoint and an autoresume to 4; the parameters agree.
+  7. stage3  - MicroDiT-XL stage 3 (512px, mask 0.75, mb 32, K = 8, 'gather' with
+               the expert-major kernel K3, fp32 EMA from step 2) through
+               train.cli.main with the H100 overlay on a seeded synthetic 512px MDS
+               set: 4 steps and one eval with the launch counts of every kernel
+               checked, then bare steps under remat 'dots' and 'full' (peaks, times,
+               profiles); two calls of a 'gather' MoE layer are bitwise equal.
+  8. stage4  - the same for stage 4 (mask 0, mb 16, K = 16), and one microbatch's
+               loss and whole gradient through the kernels against the plain path.
+     sample512 - a 30-step CFG-5 generate() of 2 prompts at 512px with the stage-4
+               model, launch counts checked.
+  9. chain   - MicroDiT-Tiny through the stage handoffs: stage 2 (256px) saves,
+               stage 3 loads its weights only across the pos_embed change (1024
+               tokens) and saves, stage 4 loads stage 3's full state (bitwise
+               equal to the save) and evaluates; the whole-K attention kernel K4
+               runs at head_dim 32, forward and backward, with exact counts.
+Every kernel is then checked against its plain version, and timed, at every shape
+the phases recorded.
 
 Prints each phase's wall time, a `kernels` JSON line and the card's name and
 power limit before the last line, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
@@ -104,6 +123,18 @@ TRAINER_SAMPLES = 1024  # synthetic train samples (166 KB each), 4 steps per epo
 EVAL_SAMPLES = 256
 RESUME_BATCH, RESUME_MB = 32, 16  # Tiny round trip: K = 2 microbatches per step
 RESUME_TOL = 1e-6  # relative L2 of all parameters, straight vs resumed
+EM_REPLACES = "micro_diffusion_tpu/ops/moe_ffn.py:439"      # _em_fwd (K3)
+EM_BWD_REPLACES = "micro_diffusion_tpu/ops/moe_ffn.py:458"  # _em_bwd (K3 backward)
+BH_REPLACES = "micro_diffusion_tpu/ops/flash_attention_bh.py:22"      # _fwd_kernel (K4)
+BH_BWD_REPLACES = "micro_diffusion_tpu/ops/flash_attention_bh.py:48"  # _bwd_kernel
+STAGE_STEPS = 4       # fit steps of [stage3] / [stage4], then one eval
+STAGE_EMA_START = 2   # algorithms.ema.ema_start: the EMA decays from step 2 on
+STAGE_TIMED = 2       # bare steps timed per remat policy, after a warm-up step
+BARE_MICROBATCHES = 2  # microbatches of a [stage3]/[stage4] bare step
+STAGE_SAMPLES, STAGE_EVAL_SAMPLES = 1024, 256  # 512px synthetic set (32 KB latents each)
+SAMPLE512_PROMPTS = 2  # [sample512]: x2 for CFG, batch 4 through the DiT
+CHAIN_BATCH = 64      # [chain] per-rank batch: K = 1 / 2 / 4 at stages 2 / 3 / 4
+CHAIN_STEPS = 2       # steps per chain stage
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OVERLAY = os.path.join(ROOT, "micro_diffusion_tpu_torch", "configs", "h100_1gpu")
 PROMPTS_FILE = os.path.join(ROOT, "configs", "eval_prompts.yaml")  # the recipe's, cwd-free
@@ -150,15 +181,15 @@ def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 # ---------------------------------------------------------------- kernels
 
 
-def attn_case(tq, tk, h, gen, b=8):
-    """q (B, Tq, H, 64) contiguous; k and v strided views of one packed kv
+def attn_case(tq, tk, h, gen, b=8, d=64):
+    """q (B, Tq, H, D) contiguous; k and v strided views of one packed kv
     tensor, as the cross-attention path hands them to the kernel."""
     import torch
 
-    q = torch.randn(b, tq, h, 64, generator=gen, device="cuda").bfloat16()
-    kv = torch.randn(b, tk, 2, h * 64, generator=gen, device="cuda").bfloat16()
-    k = kv[:, :, 0].view(b, tk, h, 64)
-    v = kv[:, :, 1].view(b, tk, h, 64)
+    q = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(b, tk, 2, h * d, generator=gen, device="cuda").bfloat16()
+    k = kv[:, :, 0].view(b, tk, h, d)
+    v = kv[:, :, 1].view(b, tk, h, d)
     return q, k, v
 
 
@@ -196,6 +227,26 @@ def adaln_flops_bytes(b, t, d):
     modulate); x read and out written in bf16, shift and scale read once, the fp32
     weight once."""
     return 10 * b * t * d, 2 * 2 * b * t * d + 2 * 2 * b * d + 4 * d
+
+
+def em_flops_bytes(e, m, d, f):
+    """K3 forward: moe_flops_bytes on expert-major rows (n*k = m)."""
+    return moe_flops_bytes(1, e, m, d, f)
+
+
+def em_bwd_flops_bytes(e, m, d, f):
+    return moe_bwd_flops_bytes(1, e, m, d, f)
+
+
+def bh_flops_bytes(b, tq, tk, h, d):
+    """K4 forward: 2 products of 2*B*H*Tq*Tk*D; q, k, v read and out written, bf16."""
+    return 4 * b * h * tq * tk * d, 2 * d * h * b * (2 * tq + 2 * tk)
+
+
+def bh_bwd_flops_bytes(b, tq, tk, h, d):
+    """K4 backward: 5 products; q, do read and dq written, k, v read and dk, dv
+    written, bf16."""
+    return 5 * 2 * b * h * tq * tk * d, 2 * d * h * b * (3 * tq + 4 * tk)
 
 
 def rel_err(got, ref):
@@ -325,51 +376,225 @@ def check_adaln(shape, gen):
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
+def check_em(shape, gen):
+    """K3 forward against its plain version at one expert-major (e, m, d, f) shape."""
+    import torch
+    mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+
+    e, m, d, f = shape
+    xg, w1, w2 = moe_case(m, d, f, gen, n=1, e=e)
+    xg = xg[0]
+    out = mf.moe_ffn_expert_major(xg, w1, w2)
+    torch.cuda.synchronize()
+    ref = mf.moe_ffn_expert_major_plain(xg, w1, w2)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (math.isfinite(err) and err <= MOE_TOL):
+        raise AssertionError(f"moe_ffn_expert_major {shape}: max abs err {err} > {MOE_TOL}")
+    ms = time_ms(lambda: mf.moe_ffn_expert_major(xg, w1, w2), iters=10)
+    plain_ms = time_ms(lambda: mf.moe_ffn_expert_major_plain(xg, w1, w2), iters=3, warmup=1)
+    bound_ms, by = bound(*em_flops_bytes(e, m, d, f))
+    return dict(e=e, m=m, d=d, f=f, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def check_em_bwd(shape, gen):
+    """K3's backward against its plain version at one (e, m, d, f) shape."""
+    import torch
+    mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+
+    e, m, d, f = shape
+    xg, w1, w2 = moe_case(m, d, f, gen, n=1, e=e)
+    xg = xg[0]
+    do = torch.randn(e, m, d, generator=gen, device="cuda").bfloat16()
+    got = mf.moe_ffn_expert_major_bwd(xg, w1, w2, do)
+    torch.cuda.synchronize()
+    ref = mf.moe_ffn_expert_major_bwd_plain(xg, w1, w2, do)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    if not all(math.isfinite(e_) and e_ <= BWD_TOL for e_ in errs):
+        raise AssertionError(f"moe_ffn_expert_major backward {shape}: rel errs (dx, dw1, "
+                             f"dw2) {errs} > {BWD_TOL}")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    del got, ref
+    ms = time_ms(lambda: mf.moe_ffn_expert_major_bwd(xg, w1, w2, do), iters=5)
+    plain_ms = time_ms(lambda: mf.moe_ffn_expert_major_bwd_plain(xg, w1, w2, do), iters=2,
+                       warmup=1)
+    bound_ms, by = bound(*em_bwd_flops_bytes(e, m, d, f))
+    return dict(e=e, m=m, d=d, f=f, max_abs_err=err, max_rel_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def check_bh(shape, gen):
+    """K4 forward against its plain version at one (B, Tq, Tk, H, D) shape; SDPA's
+    time on the same inputs as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
+
+    b, tq, tk, h, d = shape
+    q, k, v = attn_case(tq, tk, h, gen, b, d)
+    out = bh.flash_attention_bh(q, k, v)
+    torch.cuda.synchronize()
+    ref = bh.flash_attention_bh_plain(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (math.isfinite(err) and err <= ATTN_TOL):
+        raise AssertionError(f"flash_attention_bh {shape}: max abs err {err} > {ATTN_TOL}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = time_ms(lambda: bh.flash_attention_bh(q, k, v), iters=10)
+    plain_ms = time_ms(lambda: bh.flash_attention_bh_plain(q, k, v), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10)
+    bound_ms, by = bound(*bh_flops_bytes(b, tq, tk, h, d))
+    return dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def check_bh_bwd(shape, gen):
+    """K4's backward against its plain version; SDPA's backward as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
+
+    b, tq, tk, h, d = shape
+    q, k, v = attn_case(tq, tk, h, gen, b, d)
+    do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    got = bh.flash_attention_bh_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    ref = bh.flash_attention_bh_bwd_plain(q, k, v, do)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    if not all(math.isfinite(e) and e <= BWD_TOL for e in errs):
+        raise AssertionError(f"flash_attention_bh backward {shape}: rel errs (dq, dk, dv) "
+                             f"{errs} > {BWD_TOL}")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    del got, ref
+    ms = time_ms(lambda: bh.flash_attention_bh_bwd(q, k, v, do), iters=5)
+    plain_ms = time_ms(lambda: bh.flash_attention_bh_bwd_plain(q, k, v, do), iters=2,
+                       warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                     iters=5)
+    bound_ms, by = bound(*bh_bwd_flops_bytes(b, tq, tk, h, d))
+    return dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=err, max_rel_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
 # ------------------------------------------------------------------ slice
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's two kernel call sites to the kernels' plain versions,
-    forward and backward (the plain backwards run in the autograd Functions)."""
+    """Route the model's kernel call sites (K1, K4, K2, K3, K6) to the kernels' plain
+    versions, forward and backward (the plain backwards run in the autograd
+    Functions)."""
     from micro_diffusion_tpu_torch.models import layers
     from micro_diffusion_tpu_torch.ops import attention
 
     fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
+    bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
     mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
-    saved = attention.flash_attention_lane, layers.moe_ffn
-    attention.flash_attention_lane = fal.flash_attention_lane_reference
-    layers.moe_ffn = mf.moe_ffn_reference
+    ad = importlib.import_module("micro_diffusion_tpu_torch.ops.adaln")
+    sites = [(attention, "flash_attention_lane", fal.flash_attention_lane_reference),
+             (attention, "flash_attention_bh", bh.flash_attention_bh_reference),
+             (layers, "moe_ffn", mf.moe_ffn_reference),
+             (layers, "moe_ffn_expert_major", mf.moe_ffn_expert_major_reference),
+             (layers, "layernorm_modulate", ad.layernorm_modulate_reference)]
+    saved = [getattr(mod, name) for mod, name, _ in sites]
+    for mod, name, plain in sites:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        attention.flash_attention_lane, layers.moe_ffn = saved
+        for (mod, name, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
+def attn_route(h, d, tq):
+    """The card's 'auto' attention dispatch (ops/attention.py): K1 where the lane
+    kernel applies (head_dim 64, even H), else K4 at Tq >= 512, else the plain
+    path (no kernel)."""
+    if d == 64 and h % 2 == 0:
+        return "attention"
+    return "bh" if tq >= 512 else None
+
+
+BWD_OF = {"attention": "attention_bwd", "bh": "bh_bwd", "moe": "moe_bwd", "em": "em_bwd"}
+
+
+class PathRecord:
+    """The kernel calls of the forwards run under ``record_path``, by kernel and
+    shape (K1 (B, Tq, Tk, H), K4 (B, Tq, Tk, H, D), K2 (n, e, k, d, f), K3
+    (e, m, d, f), K6 (B, T, D)), and those of them outside the remat blocks (the
+    caption block's attention, the final layer's adaLN)."""
+
+    def __init__(self):
+        kinds = ("attention", "bh", "moe", "em", "adaln")
+        self.shapes = {k: collections.Counter() for k in kinds}
+        self.outside = {k: collections.Counter() for k in kinds}
+
+    def calls(self):
+        return {k: sum(c.values()) for k, c in self.shapes.items()}
+
+    def step_shapes(self, kind, microbatches, backward=False):
+        """Launches by shape of a train step of ``microbatches`` microbatches under
+        per-block remat: a block's kernel calls run twice forward (the backward
+        re-runs the block) and once backward; the calls outside the blocks once
+        each way."""
+        return collections.Counter({
+            shape: microbatches * (n if backward else 2 * n - self.outside[kind][shape])
+            for shape, n in self.shapes[kind].items()})
+
+    def step_launches(self, microbatches):
+        want = launch_dict()
+        for kind in self.shapes:
+            want[kind] = sum(self.step_shapes(kind, microbatches).values())
+            if kind in BWD_OF:
+                want[BWD_OF[kind]] = sum(self.step_shapes(kind, microbatches, True).values())
+        return want
+
+    def forward_launches(self, forwards):
+        """Launches of ``forwards`` forwards without gradients (eval, sampling)."""
+        return launch_dict(**{k: forwards * n for k, n in self.calls().items()})
 
 
 @contextlib.contextmanager
-def record_shapes(dit):
-    """Collect the attention (B, Tq, Tk, H) and MoE (n, e, k, d, f) call shapes of
-    the forwards run inside the block, through forward pre-hooks."""
+def record_path(dit):
+    """Record the kernel calls of the forwards run inside the block through forward
+    pre-hooks, routed as the card routes them."""
     from micro_diffusion_tpu_torch.models import layers
 
-    attn, moe, adaln = collections.Counter(), collections.Counter(), collections.Counter()
+    mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
+    rec = PathRecord()
+    outside = {id(dit.y_emb_preprocess.attn), id(dit.final_layer.norm_final)}
+
+    def add(kind, key, mod):
+        if kind is not None:
+            rec.shapes[kind][key] += 1
+            rec.outside[kind][key] += id(mod) in outside
+
+    def on_attn(mod, tq, tk, b):
+        h = mod.num_heads
+        d = mod.hidden // h
+        kind = attn_route(h, d, tq)
+        add(kind, (b, tq, tk, h) if kind == "attention" else (b, tq, tk, h, d), mod)
 
     def on_self(mod, args):
-        x = args[0]
-        attn[(x.shape[0], x.shape[1], x.shape[1], mod.num_heads)] += 1
+        on_attn(mod, args[0].shape[1], args[0].shape[1], args[0].shape[0])
 
     def on_cross(mod, args):
-        x, cond = args[0], args[1]
-        attn[(x.shape[0], x.shape[1], cond.shape[-2], mod.num_heads)] += 1
+        on_attn(mod, args[0].shape[1], args[1].shape[-2], args[0].shape[0])
 
     def on_moe(mod, args):
         n, t, d = args[0].shape
-        e = mod.num_experts
-        moe[(n, e, int(mod.expert_capacity * t / e), d, mod.w1.shape[-1])] += 1
+        e, f = mod.num_experts, mod.w1.shape[-1]
+        k = int(mod.expert_capacity * t / e)
+        if mod.dispatch in ("onehot", "hybrid") and mf.supported(n, e, k, d, f):
+            add("moe", (n, e, k, d, f), mod)
+        elif mod.dispatch == "gather" and mf.supported_expert_major(n * k, d, f):
+            add("em", (e, n * k, d, f), mod)
 
     def on_norm(mod, args):
         if len(args) > 1 and args[1] is not None:  # called with (shift, scale)
-            adaln[tuple(args[0].shape)] += 1
+            add("adaln", tuple(args[0].shape), mod)
 
     hooks = []
     for mod in dit.modules():
@@ -382,7 +607,7 @@ def record_shapes(dit):
         elif isinstance(mod, layers.FeedForwardECMoe):
             hooks.append(mod.register_forward_pre_hook(on_moe))
     try:
-        yield attn, moe, adaln
+        yield rec
     finally:
         for hk in hooks:
             hk.remove()
@@ -420,8 +645,9 @@ def run_slice(steps, prompts):
     y = torch.randn(prompts, 77, 1024, generator=gen, device="cuda")
     x = torch.randn(prompts, 4, 32, 32, generator=gen, device="cuda")
     sigma = torch.full((1,), 2.5, device="cuda")
-    with torch.no_grad(), record_shapes(model.dit) as (attn_shapes, moe_shapes, _):
+    with torch.no_grad(), record_path(model.dit) as rec:
         out_k = model.model_forward_wrapper(x, sigma, y, cfg=5.0)["sample"]
+    attn_shapes, moe_shapes = rec.shapes["attention"], rec.shapes["moe"]
     with torch.no_grad(), plain_kernels():
         out_p = model.model_forward_wrapper(x, sigma, y, cfg=5.0)["sample"]
     torch.cuda.synchronize()
@@ -502,10 +728,18 @@ def profile_forward(model, x, sigma, y, top=12):
 
 def kernel_counts():
     fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
+    bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
     mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
     ad = importlib.import_module("micro_diffusion_tpu_torch.ops.adaln")
     return {"attention": fal.flash_attention_lane, "attention_bwd": fal.flash_attention_lane_bwd,
-            "moe": mf.moe_ffn, "moe_bwd": mf.moe_ffn_bwd, "adaln": ad.layernorm_modulate}
+            "moe": mf.moe_ffn, "moe_bwd": mf.moe_ffn_bwd, "adaln": ad.layernorm_modulate,
+            "bh": bh.flash_attention_bh, "bh_bwd": bh.flash_attention_bh_bwd,
+            "em": mf.moe_ffn_expert_major, "em_bwd": mf.moe_ffn_expert_major_bwd}
+
+
+def launch_dict(**counts):
+    """Launch counts of every kernel wrapper, 0 where not given."""
+    return {name: counts.get(name, 0) for name in kernel_counts()}
 
 
 def reset_counts():
@@ -517,28 +751,28 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_counts().items()}
 
 
-def train_batch(gen, b):
-    """Seeded stage-1 batch: latents (b, 4, 32, 32), caption latents (b, 1, 77, 1024),
-    10% of the captions dropped."""
+def train_batch(gen, b, latent=32):
+    """Seeded batch: latents (b, 4, latent, latent) (32 at 256px, 64 at 512px),
+    caption latents (b, 1, 77, 1024), 10% of the captions dropped."""
     import torch
 
     return {
-        "image_latents": torch.randn(b, 4, 32, 32, generator=gen, device="cuda"),
+        "image_latents": torch.randn(b, 4, latent, latent, generator=gen, device="cuda"),
         "caption_latents": torch.randn(b, 1, 77, 1024, generator=gen, device="cuda"),
         "drop_caption_mask": (torch.rand(b, generator=gen, device="cuda") >= 0.1).float(),
     }
 
 
-def compare_train_grads(model, batch, gen):
+def compare_train_grads(model, batch, gen, label="[train]"):
     """One microbatch's loss and whole gradient through the kernels and through the
     plain versions, with the same injected draws."""
     import torch
     from micro_diffusion_tpu_torch.ops.masking import make_token_mask
 
-    b = batch["image_latents"].shape[0]
-    t = (32 // model.dit.patch_size) ** 2
+    b, _, res, _ = batch["image_latents"].shape
+    t = (res // model.dit.patch_size) ** 2
     draws = dict(rnd_normal=torch.randn(b, 1, 1, 1, generator=gen, device="cuda"),
-                 noise=torch.randn(b, 4, 32, 32, generator=gen, device="cuda"),
+                 noise=torch.randn(b, 4, res, res, generator=gen, device="cuda"),
                  token_mask=make_token_mask(gen, b, t, model.train_mask_ratio))
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -555,7 +789,7 @@ def compare_train_grads(model, batch, gen):
     rel_grad = (diff2.sqrt() / ref2.sqrt()).item()
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-    log(f"[train] mb {b}, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+    log(f"{label} mb {b}, kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
         f"(rel {rel_loss:.3e}, tol {TRAIN_LOSS_TOL}); whole gradient rel L2 {rel_grad:.3e} "
         f"(tol {TRAIN_GRAD_TOL}), |grad| {ref2.sqrt().item():.4e}, finite {finite}")
     if not (finite and rel_loss <= TRAIN_LOSS_TOL and rel_grad <= TRAIN_GRAD_TOL):
@@ -602,8 +836,9 @@ def run_train():
 
     # the path's kernel shapes, from one forward of the loss (under remat the
     # backward re-runs each block's forward, which the hooks would count again)
-    with torch.no_grad(), record_shapes(model.dit) as (attn_shapes, moe_shapes, _):
+    with torch.no_grad(), record_path(model.dit) as rec:
         model(batch, generator=gen)
+    attn_shapes, moe_shapes = rec.shapes["attention"], rec.shapes["moe"]
     per_fwd = (sum(attn_shapes.values()), sum(moe_shapes.values()))
     if per_fwd != (69, 16):
         raise AssertionError(f"XL train forward ran {per_fwd} attention/MoE calls, not (69, 16)")
@@ -627,8 +862,8 @@ def run_train():
             if changed < 0.9 * len(sums):
                 raise AssertionError(f"step 1 changed only {changed} of {len(sums)} params")
     fwd_factor = 2 if REMAT else 1  # with remat the 34 blocks re-run their forward
-    want = {"attention": 69 + 68 * (fwd_factor - 1), "attention_bwd": 69,
-            "moe": 16 * fwd_factor, "moe_bwd": 16, "adaln": 0}  # fused adaLN off here
+    want = launch_dict(attention=69 + 68 * (fwd_factor - 1), attention_bwd=69,
+                       moe=16 * fwd_factor, moe_bwd=16)  # fused adaLN off here
     log(f"[train] launches per K=1 step {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"train step launch counts {launches} != {want}")
@@ -673,18 +908,21 @@ def profile_step(fn, top=15, label=f"XL stage-1 train step (mb {TRAIN_MB})"):
 # ------------------------------------------------------------------ trainer
 
 
-def write_latents(dirname, n, seed):
+def write_latents(dirname, n, seed, res=256):
     """A seeded MDS latents dataset with the recipe's columns: fp16 caption latents
-    (1, 77, 1024) and 256px image latents (4, 32, 32), 166 KB per sample."""
+    (1, 77, 1024) and image latents (4, res/8, res/8) (8 KB at 256px, 32 KB at
+    512px)."""
     import numpy as np
     from micro_diffusion_tpu_torch.datasets import MDSWriter
 
     rng = np.random.default_rng(seed)
+    lat = res // 8
     caps = rng.standard_normal((n, 1, 77, 1024), dtype=np.float32).astype(np.float16)
-    lats = (0.8 * rng.standard_normal((n, 4, 32, 32), dtype=np.float32)).astype(np.float16)
-    with MDSWriter(out=dirname, columns={"caption_latents": "bytes", "latents_256": "bytes"}) as w:
+    lats = (0.8 * rng.standard_normal((n, 4, lat, lat), dtype=np.float32)).astype(np.float16)
+    col = f"latents_{res}"
+    with MDSWriter(out=dirname, columns={"caption_latents": "bytes", col: "bytes"}) as w:
         for i in range(n):
-            w.write({"caption_latents": caps[i].tobytes(), "latents_256": lats[i].tobytes()})
+            w.write({"caption_latents": caps[i].tobytes(), col: lats[i].tobytes()})
 
 
 class TrainerProbe:
@@ -713,12 +951,13 @@ class TrainerProbe:
 
     def fit_start(self, trainer):
         self._mark = read_counts()
+        self._start = trainer.global_step  # 0, or the step a full-state load resumed at
 
     def step_end(self, trainer, metrics):
         self.steps.append(self._delta())
-        if trainer.global_step == 1:
+        if trainer.global_step == self._start + 1:
             self._sums = self._param_sums(trainer)
-        elif trainer.global_step == 2:
+        elif trainer.global_step == self._start + 2:
             self.changed = int((self._param_sums(trainer) != self._sums).sum())
 
     def eval_end(self, trainer, eval_loss):
@@ -726,6 +965,14 @@ class TrainerProbe:
 
     def fit_end(self, trainer):
         self.changed_by_end = int((self._param_sums(trainer) != self._sums).sum())
+
+
+def free_memory():
+    import gc
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def read_jsonl(path):
@@ -829,8 +1076,8 @@ def run_trainer(tmp):
             and all(math.isfinite(v) for v in losses + norms + evals) and len(evals) == 1):
         raise AssertionError(f"trainer metrics: {len(losses)} losses, {len(norms)} grad "
                              f"norms, evals {evals}; all finite expected")
-    want = {"attention": 137, "attention_bwd": 69, "moe": 32, "moe_bwd": 16, "adaln": 137}
-    want_eval = {"attention": 138, "attention_bwd": 0, "moe": 32, "moe_bwd": 0, "adaln": 138}
+    want = launch_dict(attention=137, attention_bwd=69, moe=32, moe_bwd=16, adaln=137)
+    want_eval = launch_dict(attention=138, moe=32, adaln=138)
     log(f"[trainer] launches per step {probe.steps}; eval (2 batches of 128) "
         f"{probe.eval_counts}")
     if probe.steps != [want] * TRAINER_STEPS or probe.eval_counts != want_eval:
@@ -851,8 +1098,9 @@ def run_trainer(tmp):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = {k: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
              for k, v in train_batch(gen, TRAIN_MB).items()}
-    with torch.no_grad(), record_shapes(dit) as (_, _, adaln_fwd):
+    with torch.no_grad(), record_path(dit) as rec:
         trainer.model(batch, generator=gen)
+    adaln_fwd = rec.shapes["adaln"]
     adaln_step = {s: 2 * c for s, c in adaln_fwd.items()}
     adaln_step[(TRAIN_MB, 64, dit.dim)] -= 1  # the final layer (64 kept tokens) runs
                                               # outside the remat blocks
@@ -940,6 +1188,330 @@ def run_resume(tmp):
     return dict(equal=equal, tensors=len(ref), rel=rel, max_abs=max_abs)
 
 
+# ------------------------------------------------------------ 512px stages
+
+
+class StageProbe(TrainerProbe):
+    """TrainerProbe plus the EMA: its per-tensor sums when step ``STAGE_EMA_START``
+    ends (the last mirrored value) and at the end of the fit, and how many EMA
+    tensors differ from the parameters at the end (they lag once it decays)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ema_moved, self.ema_lagging, self._ema_sums = None, None, None
+
+    @staticmethod
+    def _ema_totals(trainer):
+        import torch
+        return torch.stack([p.detach().double().sum()
+                            for p in trainer.state.ema_params.values()]).cpu()
+
+    def step_end(self, trainer, metrics):
+        super().step_end(trainer, metrics)
+        if trainer.global_step == STAGE_EMA_START:
+            self._ema_sums = self._ema_totals(trainer)
+
+    def fit_end(self, trainer):
+        import torch
+        super().fit_end(trainer)
+        self.ema_moved = int((self._ema_totals(trainer) != self._ema_sums).sum())
+        ema, params = trainer.state.ema_params, trainer.state.params
+        self.ema_lagging = sum(not torch.equal(ema[k], params[k]) for k in params)
+
+
+def stage_argv(config, train_dir, eval_dir, metrics_path, steps, *extra):
+    return ["--config-path", OVERLAY, "--config-name", config,
+            f"dataset.train.datadir={train_dir}", f"dataset.eval.datadir={eval_dir}",
+            f"trainer.max_duration={steps}ba", "trainer.metric_window=1",
+            "trainer.load_path=null", "trainer.save_folder=null", "trainer.save_interval=0",
+            f"trainer.eval_interval={steps}ba", "callbacks.speed_monitor.window_size=1",
+            f"callbacks.image_monitor.prompts_file={PROMPTS_FILE}",
+            "logger.progress._target_=micro_diffusion_tpu_torch.train.callbacks.JSONLLogger",
+            f"logger.progress.path={metrics_path}", *extra]
+
+
+def fit_metrics(metrics_path, steps, label):
+    """Losses, grad norms, SpeedMonitor img/s and the eval loss of a fit; all finite,
+    one per step and one eval."""
+    rows = read_jsonl(metrics_path)
+    losses = [r["loss/train/total"] for r in rows if "loss/train/total" in r]
+    norms = [r["l2_norm/grad/global"] for r in rows if "l2_norm/grad/global" in r]
+    ips = {r["step"]: r["throughput/images_per_sec"] for r in rows
+           if "throughput/images_per_sec" in r}
+    evals = [r["metrics/eval/loss"] for r in rows if "metrics/eval/loss" in r]
+    log(f"{label} losses {losses}; grad norms {norms}; eval loss {evals}; images/s per "
+        f"step {ips}")
+    if not (len(losses) == len(norms) == steps and len(evals) == 1
+            and all(math.isfinite(v) for v in losses + norms + evals)):
+        raise AssertionError(f"{label} metrics: {len(losses)} losses, {len(norms)} grad "
+                             f"norms, evals {evals}; all finite expected")
+    return losses, norms, ips, evals
+
+
+def microbatching(trainer):
+    """(microbatch size, microbatches per step) of a trainer's step, as
+    make_train_step splits the batch."""
+    batch = trainer.global_batch_size
+    mb = min(trainer.microbatch_size or batch, batch)
+    return mb, batch // mb
+
+
+def path_of(trainer, latent):
+    """The kernel calls of one training microbatch's forward (mask ratio of the
+    recipe) and of one eval forward (mask 0), recorded on small seeded batches of
+    the path's shapes (the microbatch at its size: its shapes are timed)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    mb, _ = microbatching(trainer)
+    with torch.no_grad(), record_path(trainer.model.dit) as train_rec:
+        trainer.model(train_batch(gen, mb, latent), generator=gen)
+    with torch.no_grad(), record_path(trainer.model.dit) as eval_rec:
+        trainer._eval_fn(train_batch(gen, 2, latent), gen)
+    return train_rec, eval_rec
+
+
+def check_launches(label, probe, want, want_eval, steps):
+    log(f"{label} launches per step {probe.steps[0]} (all {steps} steps equal: "
+        f"{probe.steps == [probe.steps[0]] * steps}); expected {want}; eval {probe.eval_counts}, "
+        f"expected {want_eval}")
+    if probe.steps != [want] * steps or probe.eval_counts != want_eval:
+        raise AssertionError(f"{label} launch counts: steps {probe.steps} (want {want}), eval "
+                             f"{probe.eval_counts} (want {want_eval})")
+
+
+def gather_determinism(moe, gen, n, t):
+    """Two forward + backward calls of one 'gather' MoE layer on the same input: the
+    expert-by-expert combine and dispatch backward make them bitwise equal."""
+    import torch
+
+    x = torch.randn(n, t, moe.w1.shape[1], generator=gen, device="cuda").bfloat16()
+    do = torch.randn(n, t, moe.w1.shape[1], generator=gen, device="cuda").bfloat16()
+    params = [moe.gate.weight, moe.w1, moe.w2]
+    runs = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_()
+        out = moe(xi)
+        grads = torch.autograd.grad(out, [xi] + params, do)
+        runs.append([out.detach()] + [g.detach() for g in grads])
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+    log(f"[stage3] 'gather' MoE layer ({n}, {t}, {moe.w1.shape[1]}) twice on the card: "
+        f"output, dx, dgate, dw1, dw2 bitwise equal {equal}")
+    if not all(equal):
+        raise AssertionError(f"'gather' MoE layer not bitwise repeatable: {equal}")
+
+
+def bare_policy(trainer, batch, policy, label):
+    """A warm-up and ``STAGE_TIMED`` bare train steps under remat ``policy``, its peak
+    memory, then one profiled step."""
+    import torch
+
+    dit = trainer.model.dit
+    saved, dit.remat_policy = dit.remat_policy, policy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = bare_steps(trainer, batch, 1 + STAGE_TIMED)[1:]
+    peak = torch.cuda.max_memory_allocated()
+    b = batch["image_latents"].shape[0]
+    ms = sorted(times)[len(times) // 2]
+    log(f"{label} bare steps, remat '{policy}', batch {b}: "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
+        f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB")
+    profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
+                 label=f"{label} step, remat '{policy}'")
+    dit.remat_policy = saved
+    return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, times=times)
+
+
+def run_stage(tmp, config, label, latent=64):
+    """One XL 512px stage through the entry point (the H100 overlay, 'gather', EMA
+    from ``STAGE_EMA_START``), then the stage's bare steps under 'dots' and 'full'."""
+    import torch
+    from micro_diffusion_tpu_torch.train import cli
+
+    train_dir, eval_dir = os.path.join(tmp, "train512"), os.path.join(tmp, "eval512")
+    if not os.path.exists(os.path.join(train_dir, "index.json")):
+        t0 = time.perf_counter()
+        write_latents(train_dir, STAGE_SAMPLES, SEED + 20, res=512)
+        write_latents(eval_dir, STAGE_EVAL_SAMPLES, SEED + 21, res=512)
+        log(f"{label} wrote {STAGE_SAMPLES} + {STAGE_EVAL_SAMPLES} synthetic 512px MDS "
+            f"samples in {time.perf_counter() - t0:.1f} s")
+    metrics_path = os.path.join(tmp, f"{config}.jsonl")
+    probe = StageProbe()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.main(stage_argv(config, train_dir, eval_dir, metrics_path, STAGE_STEPS,
+                                  f"algorithms.ema.ema_start={STAGE_EMA_START}ba"),
+                       callbacks=[probe])
+    wall = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    dit = trainer.model.dit
+    batch_size = trainer.global_batch_size
+    mb, k = microbatching(trainer)
+    log(f"{label} cli.main {config}: {STAGE_STEPS} steps of {batch_size} (mb {mb}, K = {k}) "
+        f"+ eval in {wall:.1f} s (model build included); moe_dispatch "
+        f"{sorted({m.dispatch for m in dit.modules() if hasattr(m, 'dispatch')})}, remat "
+        f"'{dit.remat_policy}', mask {trainer.model.train_mask_ratio}; peak "
+        f"{fit_peak / 2**30:.2f} GiB")
+    losses, norms, ips, evals = fit_metrics(metrics_path, STAGE_STEPS, label)
+
+    train_rec, eval_rec = path_of(trainer, latent)
+    want = train_rec.step_launches(k)
+    n_eval = -(-STAGE_EVAL_SAMPLES // trainer.eval_loader.batch_size)
+    want_eval = eval_rec.forward_launches(n_eval)
+    check_launches(label, probe, want, want_eval, STAGE_STEPS)
+    if want["moe"] or not want["em"]:
+        raise AssertionError(f"{label}: 'gather' must run K3 and never the one-hot K2: {want}")
+    n_params = len(trainer.state.params)
+    log(f"{label} steps 1-{STAGE_STEPS - 1} changed {probe.changed_by_end} of {n_params} "
+        f"parameter tensors; the EMA moved in {probe.ema_moved} after step "
+        f"{STAGE_EMA_START} and lags the parameters in {probe.ema_lagging}")
+    # the recipe's smoothing (0.99975 / 0.9975) moves an fp32 EMA entry by less than
+    # its ulp where the parameter moved little: some tensors keep their sum
+    if not (probe.changed_by_end == n_params and probe.ema_moved > 0
+            and probe.ema_lagging >= 0.9 * n_params):
+        raise AssertionError(f"{label}: params changed {probe.changed_by_end}, EMA moved "
+                             f"{probe.ema_moved}, lagging {probe.ema_lagging} of {n_params}")
+    windows = [ips[s] for s in sorted(ips) if s > 2]
+    trainer_ips = sorted(windows)[len(windows) // 2]
+
+    # the remat comparison on bare steps of BARE_MICROBATCHES microbatches: the
+    # per-image time and the peak of a recipe step at a fraction of its cost
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
+             for key, v in train_batch(gen, BARE_MICROBATCHES * mb, latent).items()}
+    policies = {p: bare_policy(trainer, batch, p, label) for p in ("dots", "full")}
+    return trainer, dict(train_rec=train_rec, want=want, want_eval=want_eval, k=k, mb=mb,
+                         policy=dit.remat_policy,
+                         trainer_ips=trainer_ips, fit_peak=fit_peak, losses=losses,
+                         policies=policies, wall=wall)
+
+
+def run_sample512(model, prompts=SAMPLE512_PROMPTS, steps=STEPS):
+    """The serving path at 512px: a 30-step CFG-5 generate() with the stage-4 model."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    y = torch.randn(prompts, 77, 1024, generator=gen, device="cuda")
+    x = torch.randn(prompts, 4, 64, 64, generator=gen, device="cuda")
+    with torch.no_grad(), record_path(model.dit) as rec:
+        model.model_forward_wrapper(x, torch.full((1,), 2.5, device="cuda"), y, cfg=5.0)
+    want = rec.forward_launches(2 * steps - 1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents = model.generate(text_embeddings=y, guidance_scale=5.0, num_inference_steps=steps,
+                             seed=SEED, return_only_latents=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    log(f"[sample512] generate: {prompts} prompts at 512px, {steps} Heun steps, CFG 5.0: "
+        f"{wall * 1e3:.1f} ms, {prompts / wall:.4f} img/s; launches {got}, expected {want}")
+    if tuple(latents.shape) != (prompts, 4, 64, 64) or not bool(torch.isfinite(latents).all()):
+        raise AssertionError(f"512px latents: shape {tuple(latents.shape)}, finite "
+                             f"{bool(torch.isfinite(latents).all())}")
+    if got != want:
+        raise AssertionError(f"512px generate launch counts {got} != {want}")
+    return dict(rec=rec, launches=got, wall_ms=wall * 1e3, img_per_s=prompts / wall,
+                latents_std=latents.float().std().item())
+
+
+# ------------------------------------------------------------------ chain
+
+
+def run_chain(tmp):
+    """MicroDiT-Tiny through the stage handoffs on the card: stage 2 (256px) saves;
+    stage 3 (512px) loads its weights only, pos_embed rebuilt at 1024 tokens, and
+    saves with its EMA; stage 4 loads stage 3's full state, which must equal the
+    saved one bit for bit; 2 steps each, one eval at the end; exact launch counts."""
+    import torch
+    from micro_diffusion_tpu_torch.train import cli
+    from micro_diffusion_tpu_torch.train.config import load_config
+    from micro_diffusion_tpu_torch.train.trainer import CKPT_FILE
+
+    def stage(config, data, latent, steps, probe, *extra):
+        metrics = os.path.join(tmp, f"chain_{config}.jsonl")
+        suffix = "" if data == 256 else "512"  # the [trainer] and [stage3] datasets
+        argv = stage_argv(config, os.path.join(tmp, "train" + suffix),
+                          os.path.join(tmp, "eval" + suffix), metrics, steps,
+                          "model.dit_arch=MicroDiT_Tiny_2",
+                          f"dataset.train_batch_size={CHAIN_BATCH}",
+                          f"trainer.save_folder={os.path.join(tmp, 'chain_' + config)}", *extra)
+        cfg = load_config(argv[1], argv[3], argv[4:])
+        reset_counts()
+        trainer = cli.build_from_config(cfg, callbacks=[probe])
+        return trainer, metrics
+
+    def fit(trainer, label, latent, metrics, steps, evals):
+        trainer.fit()
+        trainer.close()
+        rows = read_jsonl(metrics)
+        losses = [r["loss/train/total"] for r in rows if "loss/train/total" in r]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label} losses {losses}")
+        train_rec, eval_rec = path_of(trainer, latent)
+        want = train_rec.step_launches(microbatching(trainer)[1])
+        want_eval = eval_rec.forward_launches(
+            -(-STAGE_EVAL_SAMPLES // trainer.eval_loader.batch_size)) if evals else None
+        log(f"{label} losses {losses}")
+        check_launches(label, probe, want, want_eval, steps)
+        return train_rec, want
+
+    t0 = time.perf_counter()
+    probe = TrainerProbe()
+    s2, m2 = stage("res_256_finetune", 256, 32, CHAIN_STEPS, probe, "trainer.eval_interval=0")
+    rec2, want2 = fit(s2, "[chain] stage 2", 32, m2, CHAIN_STEPS, False)
+    saved2 = {k: p.detach().clone() for k, p in s2.state.params.items()}
+    del s2
+
+    probe = TrainerProbe()
+    s3, m3 = stage("res_512_pretrain", 512, 64, CHAIN_STEPS, probe, "trainer.eval_interval=0",
+                   f"trainer.load_path={os.path.join(tmp, 'chain_res_256_finetune')}",
+                   "algorithms.ema.ema_start=1ba")
+    dit = s3.model.dit
+    strict = set(s3.state.params) == set(saved2)
+    loaded = sum(bool(torch.equal(s3.state.params[k], p)) for k, p in saved2.items())
+    log(f"[chain] stage 3 weights-only load: {loaded} of {len(saved2)} parameters equal "
+        f"stage 2's, key sets equal {strict}; pos_embed {tuple(dit.pos_embed.shape)}; step "
+        f"{s3.state.step}")
+    if not (strict and loaded == len(saved2) and tuple(dit.pos_embed.shape) == (1, 1024, dit.dim)
+            and s3.state.step == 0):
+        raise AssertionError("stage 3 weights-only load across the pos_embed change failed")
+    del saved2
+    rec3, want3 = fit(s3, "[chain] stage 3", 64, m3, CHAIN_STEPS, False)
+    del s3
+    ckpt3 = torch.load(os.path.join(tmp, "chain_res_512_pretrain", str(CHAIN_STEPS), CKPT_FILE),
+                       map_location="cuda", weights_only=True)
+
+    probe = TrainerProbe()
+    s4, m4 = stage("res_512_finetune", 512, 64, 2 * CHAIN_STEPS, probe,
+                   f"trainer.load_path={os.path.join(tmp, 'chain_res_512_pretrain')}",
+                   "trainer.save_folder=null", "algorithms.ema.ema_start=1ba")
+    st = s4.state
+    same = {"params": all(torch.equal(st.params[k], v) for k, v in ckpt3["params"].items()),
+            "mu": all(torch.equal(st.opt_state.mu[k], v)
+                      for k, v in ckpt3["opt_state"]["mu"].items()),
+            "nu": all(torch.equal(st.opt_state.nu[k], v)
+                      for k, v in ckpt3["opt_state"]["nu"].items()),
+            "ema": all(torch.equal(st.ema_params[k], v) for k, v in ckpt3["ema_params"].items()),
+            "step": st.step == ckpt3["step"] == CHAIN_STEPS,
+            "count": st.opt_state.count == ckpt3["opt_state"]["count"],
+            "keys": set(st.params) == set(ckpt3["params"])}
+    log(f"[chain] stage 4 full-state load equals stage 3's saved state: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"stage 4 full-state load differs from stage 3's save: {same}")
+    del ckpt3
+    rec4, want4 = fit(s4, "[chain] stage 4", 64, m4, CHAIN_STEPS, True)
+    if not (want3["bh"] and want3["bh_bwd"] and want4["bh"] and want4["bh_bwd"]):
+        raise AssertionError(f"K4 did not run on the 512px Tiny path: {want3}, {want4}")
+    wall = time.perf_counter() - t0
+    log(f"[chain] Tiny 2 -> 3 -> 4 (batch {CHAIN_BATCH}): {wall:.1f} s")
+    del s4
+    return dict(rec3=rec3, rec4=rec4, want2=want2, want3=want3, want4=want4, wall=wall)
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -964,7 +1536,7 @@ def summarize(name, source, replaces, per_shape, path_counts, launches, key, flo
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+        "max_abs_err": max((r["max_abs_err"] for r in per_shape), default=None),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if flops / peak_flops >= nbytes / PEAK_BYTES else "bytes",
         "library_ms": tot["library_ms"] if lib_known else None,
@@ -1037,7 +1609,8 @@ def main():
     tr = run_train()
     log(f"[phase] train {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 5. trainer, 6. resume (one seeded dataset, removed at the end)
+    # ---- 5. trainer, 6. resume, 7-9. the 512px stages, sampling and chain (seeded
+    # datasets and the chain's checkpoints, removed at the end)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t_phase = time.perf_counter()
         tn = run_trainer(tmp)
@@ -1045,19 +1618,55 @@ def main():
         t_phase = time.perf_counter()
         rs = run_resume(tmp)
         log(f"[phase] resume {time.perf_counter() - t_phase:.1f} s")
+        free_memory()
+
+        # ---- 7. stage 3, with the 'gather' layer's determinism on the card
+        t_phase = time.perf_counter()
+        trainer, s3 = run_stage(tmp, "res_512_pretrain", "[stage3]")
+        from micro_diffusion_tpu_torch.models.layers import FeedForwardECMoe
+        mixer_moe = next(blk.mlp for blk in trainer.model.dit.patch_mixer
+                         if isinstance(blk.mlp, FeedForwardECMoe))
+        gather_determinism(mixer_moe, gen, s3["mb"], 1024)
+        del trainer, mixer_moe
+        free_memory()
+        log(f"[phase] stage3 {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- 8. stage 4 and one microbatch kernels-vs-plain; the 512px sampler
+        t_phase = time.perf_counter()
+        trainer, s4 = run_stage(tmp, "res_512_finetune", "[stage4]")
+        gen4 = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
+                 for key, v in train_batch(gen4, s4["mb"], 64).items()}
+        s4["cmp"] = compare_train_grads(trainer.model, batch, gen4, label="[stage4]")
+        log(f"[phase] stage4 {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        sp = run_sample512(trainer.model)
+        del trainer, batch
+        free_memory()
+        log(f"[phase] sample512 {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- 9. the Tiny stage chain 2 -> 3 -> 4
+        t_phase = time.perf_counter()
+        ch = run_chain(tmp)
+        free_memory()
+        log(f"[phase] chain {time.perf_counter() - t_phase:.1f} s")
 
     # time the paths' shapes not already in the lists above
     t_phase = time.perf_counter()
     have = {(r["B"], r["Tq"], r["Tk"], r["H"]) for r in attn_rows}
-    for (b, tq, tk, h) in sorted(res["attn_shapes"]):
+    fwd_512 = [s3["train_rec"], s4["train_rec"], sp["rec"]]
+    for (b, tq, tk, h) in sorted(set(res["attn_shapes"]).union(
+            *(rec.shapes["attention"] for rec in fwd_512))):
         if (b, tq, tk, h) not in have:
             attn_rows.append(check_attention((tq, tk, h), gen, b))
+            log(f"[kernels] attention {json.dumps(attn_rows[-1])}")
     have = {(r["n"], r["e"], r["k"], r["d"], r["f"]) for r in moe_rows}
     for (n, e, k, d, f) in sorted(res["moe_shapes"]):
         if (n, e, k, d, f) not in have:
             moe_rows.append(check_moe((k, d, f), gen, n, e))
     have = {(r["B"], r["Tq"], r["Tk"], r["H"]) for r in attn_bwd_rows}
-    for shape in sorted(tr["attn_shapes"]):
+    for shape in sorted(set(tr["attn_shapes"]).union(
+            *(rec.shapes["attention"] for rec in fwd_512[:2]))):
         if shape not in have:
             attn_bwd_rows.append(check_attention_bwd(shape, gen))
             log(f"[kernels] attention_bwd {json.dumps(attn_bwd_rows[-1])}")
@@ -1067,10 +1676,24 @@ def main():
             moe_bwd_rows.append(check_moe_bwd(shape, gen))
             log(f"[kernels] moe_ffn_bwd {json.dumps(moe_bwd_rows[-1])}")
     have = {(r["B"], r["T"], r["D"]) for r in adaln_rows}
-    for shape in sorted(tn["adaln_step"]):
+    all_recs = fwd_512 + [ch["rec3"], ch["rec4"]]
+    for shape in sorted(set(tn["adaln_step"]).union(*(rec.shapes["adaln"] for rec in all_recs))):
         if shape not in have:
             adaln_rows.append(check_adaln(shape, gen))
             log(f"[kernels] layernorm_modulate {json.dumps(adaln_rows[-1])}")
+    em_rows, em_bwd_rows, bh_rows, bh_bwd_rows = [], [], [], []
+    train_recs = [s3["train_rec"], s4["train_rec"], ch["rec3"], ch["rec4"]]
+    for shape in sorted(set().union(*(rec.shapes["em"] for rec in all_recs))):
+        em_rows.append(check_em(shape, gen))
+        log(f"[kernels] moe_ffn_expert_major {json.dumps(em_rows[-1])}")
+    for shape in sorted(set().union(*(rec.shapes["em"] for rec in train_recs))):
+        em_bwd_rows.append(check_em_bwd(shape, gen))
+        log(f"[kernels] moe_ffn_expert_major_bwd {json.dumps(em_bwd_rows[-1])}")
+    for shape in sorted(set().union(*(rec.shapes["bh"] for rec in train_recs))):
+        bh_rows.append(check_bh(shape, gen))
+        log(f"[kernels] flash_attention_bh {json.dumps(bh_rows[-1])}")
+        bh_bwd_rows.append(check_bh_bwd(shape, gen))
+        log(f"[kernels] flash_attention_bh_bwd {json.dumps(bh_bwd_rows[-1])}")
     log(f"[phase] path shapes {time.perf_counter() - t_phase:.1f} s")
 
     attn_key = lambda r: (r["B"], r["Tq"], r["Tk"], r["H"])
@@ -1102,6 +1725,48 @@ def main():
     # the forward kernels also run in the train step: their launches there
     kernels[0]["launches_train_step"] = tr["launches"]["attention"]
     kernels[1]["launches_train_step"] = tr["launches"]["moe"]
+    em_key = lambda r: (r["e"], r["m"], r["d"], r["f"])
+    bh_key = lambda r: (r["B"], r["Tq"], r["Tk"], r["H"], r["D"])
+    rec4, k4 = s4["train_rec"], s4["k"]
+    s4_per = (f"one XL stage-4 train step (batch {k4 * s4['mb']}, mb {s4['mb']}, K={k4}, "
+              f"remat '{s4['policy']}'), summed over its calls")
+    chain_rec, chain_k = ch["rec4"], max(1, CHAIN_BATCH // 16)
+    chain_per = (f"one MicroDiT-Tiny stage-4 train step (batch {CHAIN_BATCH}, mb 16, "
+                 f"K={chain_k}, remat '{s4['policy']}'), summed over its calls")
+    kernels += [
+        summarize("moe_ffn_expert_major", "micro_diffusion_tpu_torch/csrc/moe_ffn.cu",
+                  EM_REPLACES, em_rows, rec4.step_shapes("em", k4), s4["want"]["em"],
+                  em_key, em_flops_bytes, s4_per),
+        summarize("moe_ffn_expert_major_bwd", "micro_diffusion_tpu_torch/csrc/moe_ffn_bwd.cu",
+                  EM_BWD_REPLACES, em_bwd_rows, rec4.step_shapes("em", k4, True),
+                  s4["want"]["em_bwd"], em_key, em_bwd_flops_bytes, s4_per),
+        summarize("flash_attention_bh", "micro_diffusion_tpu_torch/csrc/flash_attention_bh.cu",
+                  BH_REPLACES, bh_rows, chain_rec.step_shapes("bh", chain_k),
+                  ch["want4"]["bh"], bh_key, bh_flops_bytes, chain_per),
+        summarize("flash_attention_bh_bwd",
+                  "micro_diffusion_tpu_torch/csrc/flash_attention_bh_bwd.cu",
+                  BH_BWD_REPLACES, bh_bwd_rows, chain_rec.step_shapes("bh", chain_k, True),
+                  ch["want4"]["bh_bwd"], bh_key, bh_bwd_flops_bytes, chain_per),
+    ]
+    for entry in kernels[-4:-2]:
+        entry["launches_stage3_step"] = s3["want"][
+            "em" if entry["name"].endswith("major") else "em_bwd"]
+    kernels[-4]["launches_sample512"] = sp["launches"]["em"]
+    kernels[-2]["launches_chain_stage3_step"] = ch["want3"]["bh"]
+    kernels[-1]["launches_chain_stage3_step"] = ch["want3"]["bh_bwd"]
+    # K1, K1b and K6 over one XL stage-4 step, at the 512px shapes
+    for entry, rows, kind, key, fb, bwd, peak in (
+            (kernels[0], attn_rows, "attention", attn_key, attn_flops_bytes, False,
+             PEAK_BF16_FLOPS),
+            (kernels[2], attn_bwd_rows, "attention", attn_key, attn_bwd_flops_bytes, True,
+             PEAK_BF16_FLOPS),
+            (kernels[4], adaln_rows, "adaln", lambda r: (r["B"], r["T"], r["D"]),
+             adaln_flops_bytes, False, PEAK_FP32_FLOPS)):
+        sub = summarize(entry["name"], entry["source"], entry["replaces"], rows,
+                        rec4.step_shapes(kind, k4, bwd), sum(rec4.step_shapes(
+                            kind, k4, bwd).values()), key, fb, s4_per, peak_flops=peak)
+        entry["stage4_step"] = {f: sub[f] for f in ("per", "launches", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms")}
     log(f"[slice] sampler {res['sampler_ms']:.1f} ms for {PROMPTS} images, "
         f"{res['img_per_s']:.4f} img/s at 256px; latents std {res['latents_std']:.4f}")
     log(f"[train] stage 1 mb {TRAIN_MB}: {tr['ms_per_step']:.1f} ms/step, "
@@ -1112,6 +1777,18 @@ def main():
         f"{tn['dots_peak'] / 2**30:.2f} GiB, full {tn['full_peak'] / 2**30:.2f} GiB, "
         f"gradient rel L2 dots vs full {tn['remat_rel']:.1e}; "
         f"resume: {rs['equal']}/{rs['tensors']} bitwise, rel L2 {rs['rel']:.3e}")
+    for label, st in (("[stage3]", s3), ("[stage4]", s4)):
+        pol = st["policies"]
+        log(f"{label} through the entry point: {st['trainer_ips']:.2f} img/s (median "
+            f"SpeedMonitor window after step 2), fit peak {st['fit_peak'] / 2**30:.2f} GiB; "
+            f"bare steps 'dots' {pol['dots']['ms']:.1f} ms ({pol['dots']['img_per_s']:.2f} "
+            f"img/s, peak {pol['dots']['peak'] / 2**30:.2f} GiB), 'full' "
+            f"{pol['full']['ms']:.1f} ms ({pol['full']['img_per_s']:.2f} img/s, peak "
+            f"{pol['full']['peak'] / 2**30:.2f} GiB)")
+    log(f"[stage4] one microbatch kernels vs plain: loss rel {s4['cmp']['rel_loss']:.3e}, "
+        f"gradient rel L2 {s4['cmp']['rel_grad']:.3e}")
+    log(f"[sample512] {sp['wall_ms']:.1f} ms for {SAMPLE512_PROMPTS} images, "
+        f"{sp['img_per_s']:.4f} img/s at 512px; latents std {sp['latents_std']:.4f}")
     log(f"[phase] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -1,7 +1,9 @@
 // Fused EC-MoE expert feed-forward, forward, for Hopper (sm_90a).
 //
 // Replaces: micro_diffusion_tpu/ops/moe_ffn.py:_fwd_kernel (the Pallas TPU
-// kernel behind moe_ffn / _moe_ffn_pallas, forward only).
+// kernel behind moe_ffn / _moe_ffn_pallas, forward only: K2), and the same
+// kernel body under _em_fwd (moe_ffn_expert_major, the `gather` dispatch's
+// expert-major rows: K3), through the entry point moe_ffn_em_fwd below.
 //
 // Contract, per expert e and each of its rows x (moe_ffn.py:65-68, 83-85):
 //   a   = x @ w1[e]                      fp32 accumulation
@@ -280,4 +282,12 @@ extern "C" int moe_ffn_fwd(const void* xg, const void* w1, const void* w2, void*
     case 1024: return launch<16>(xg, w1, w2, out, n, e, k, f, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K3: expert-major rows xg (e, m, d) -> out (e, m, d). Expert e's row r is at
+// xg[e, r, :], which is the sample-major layout with n = 1 and k = m: the same
+// kernel, with (int64) row offsets e * m * d + r * d. Grid (ceil(m/32), e).
+extern "C" int moe_ffn_em_fwd(const void* xg, const void* w1, const void* w2, void* out, int e,
+                              int m, int d, int f, void* stream) {
+  return moe_ffn_fwd(xg, w1, w2, out, 1, e, m, d, f, stream);
 }

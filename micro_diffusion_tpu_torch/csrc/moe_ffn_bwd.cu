@@ -2,7 +2,9 @@
 //
 // Replaces: micro_diffusion_tpu/ops/moe_ffn.py:_dxdw_kernel, _dx_kernel and
 // _dw_kernel (the Pallas TPU kernels behind moe_ffn's backward rule, which all
-// compute one function).
+// compute one function: K2b), and the same kernel bodies under _em_bwd
+// (moe_ffn_expert_major's backward, expert-major rows: K3's backward), through
+// the entry point moe_ffn_em_bwd below.
 //
 // Contract, per expert e and each of its rows x with output cotangent do:
 //   a   = bf16(x @ w1[e])                      recomputed, fp32 accumulation
@@ -413,4 +415,15 @@ extern "C" int moe_ffn_bwd(const void* xg, const void* w1, const void* w2, const
   moe_bwd_dw_kernel<<<dim3(d / kT, f / kT, e), kGThreads, 0, s>>>(
       Rows{h, f, 0}, Rows{go, d, k}, static_cast<__nv_bfloat16*>(dw2), m, e, f, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3's backward: expert-major xg, dout, dx (e, m, d), scratch (e, m, f) each.
+// The sample-major layout with n = 1 and k = m: the dx pass takes 32 of the m
+// rows per block (grid (ceil(m/32), e)), the dw GEMMs reduce over all m rows of
+// an expert (m up to 8192 on the 512px path; fp32 sums, int64 row offsets).
+extern "C" int moe_ffn_em_bwd(const void* xg, const void* w1, const void* w2, const void* dout,
+                              void* dx, void* dw1, void* dw2, void* da_scratch, void* h_scratch,
+                              int e, int m, int d, int f, void* stream) {
+  return moe_ffn_bwd(xg, w1, w2, dout, dx, dw1, dw2, da_scratch, h_scratch, 1, e, m, d, f,
+                     stream);
 }

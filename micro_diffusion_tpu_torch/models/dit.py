@@ -133,7 +133,7 @@ def _moe_block_flags(depth: int, experts_every_n: int, *, skip_last: bool) -> li
     return [i in moe_idx for i in range(depth)]
 
 
-_UNPORTED_ATTENTION = ("flash_bh", "flash_bthd")
+_UNPORTED_ATTENTION = ("flash_bthd",)
 _REMAT_POLICIES = ("full", "dots")
 # JAX's dots_with_no_batch_dims_saveable: the Linears' products are the 2-D ones
 # (a 3-D input is folded to rows); the batched bmm/einsum products, the hand
@@ -177,7 +177,7 @@ class DiT(nn.Module):
             if impl in _UNPORTED_ATTENTION:
                 raise NotImplementedError(
                     f"attention_impl {impl!r} needs a kernel not ported yet "
-                    "(ROADMAP queue B, K4/K5)")
+                    "(ROADMAP queue B, K5)")
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels

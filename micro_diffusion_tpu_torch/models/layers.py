@@ -25,7 +25,9 @@ import torch.nn.functional as F
 
 from ..ops.adaln import layernorm_modulate
 from ..ops.attention import dot_product_attention
-from ..ops.moe_ffn import moe_ffn
+from ..ops.moe_dispatch import (combine_expert_rows, combine_rows, dispatch_rows,
+                                gather_expert_rows)
+from ..ops.moe_ffn import _moe_ffn_em_ref, _moe_ffn_ref, moe_ffn, moe_ffn_expert_major
 
 # ------------------------------------------------------------------ initialisers
 # An init spec is ("xavier",), ("zeros",) or ("normal", std); trunc_normal in the
@@ -177,31 +179,48 @@ class FeedForward(nn.Module):
         return self.w3(F.silu(self.w1(x)) * self.w2(x))
 
 
+MOE_DISPATCH = ("onehot", "onehot_dots", "hybrid", "gather", "unroll", "batched", "scan")
+
+
 class FeedForwardECMoe(nn.Module):
-    """Expert-choice MoE feed-forward with exact-GELU experts (dit.py:97-148), the
-    JAX package's default 'onehot' dispatch (layers.py:412-474): each expert picks
-    its top-k tokens per sample (k = capacity * T / E); per-sample one-hot matmuls
-    gather them into sample-major (n, e, k, d) rows for the fused expert kernel
-    (ops/moe_ffn.py) and combine the gate-weighted outputs back. The gradient
-    into the gate flows through topk's values and the gate-weighted combine; the
-    one-hot matrix is built from indices and carries none (JAX's stop_gradient,
-    layers.py:439)."""
+    """Expert-choice MoE feed-forward with exact-GELU experts (dit.py:97-148): each
+    expert picks its top-k tokens per sample (k = capacity * T / E). Every dispatch
+    of the JAX module's table (layers.py:250-274) computes the same function and
+    moves the data its own way:
+
+      'onehot'      - per-sample one-hot matmuls gather sample-major (n, e, k, d)
+                      rows for the fused expert kernel (K2, ops/moe_ffn.py) and
+                      combine the gate-weighted outputs back (the default);
+      'onehot_dots' - the same one-hot dispatch, the expert FFN as plain products;
+      'hybrid'      - row gather / one-hot matmul with explicit adjoints
+                      (ops/moe_dispatch.py) around K2, gate applied elementwise;
+      'gather'      - flat expert-major gather into (e, n*k, d) rows, the fused
+                      expert-major kernel (K3), gate weighting and a scatter-add
+                      combine: no one-hot matmuls, whose FLOPs grow as t/f of the
+                      experts' (~50% at T = 1024): the 512px stages' choice;
+      'unroll', 'batched', 'scan' - the same flat gather and combine with the
+                      expert FFN as plain batched products (TPU codegen variants
+                      of one computation: here one torch.bmm path).
+
+    The flat gather and combine add rows expert by expert (ops/moe_dispatch.py),
+    so their sums on the card are bitwise repeatable. The gradient into the gate
+    flows through topk's values and the gate weighting; the routing indices carry
+    none (JAX's stop_gradient, layers.py:439)."""
 
     def __init__(self, num_experts: int, expert_capacity: float, dim: int,
                  hidden_dim: int, multiple_of: int, w2_init=XAVIER,
                  remat_experts: bool = False, dispatch: str = "onehot",
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        if dispatch != "onehot":
-            raise NotImplementedError(
-                f"moe_dispatch {dispatch!r} is not ported; only 'onehot' is "
-                "(ROADMAP queue A, item 2)")
+        if dispatch not in MOE_DISPATCH:
+            raise ValueError(f"unknown moe_dispatch {dispatch!r}; one of {MOE_DISPATCH}")
         if remat_experts:
             raise NotImplementedError(
                 "the lean remat policies are not ported (ROADMAP queue A, item 2)")
         hidden = multiple_of * ((hidden_dim + multiple_of - 1) // multiple_of)
         self.num_experts = num_experts
         self.expert_capacity = expert_capacity
+        self.dispatch = dispatch
         self.compute_dtype = dtype
         self.w2_init = w2_init
         self.gate = Linear(dim, num_experts, bias=False, init=normal(0.02), dtype=dtype,
@@ -224,13 +243,31 @@ class FeedForwardECMoe(nn.Module):
         probs = torch.softmax(scores.float(), dim=-1)
         g, m = torch.topk(probs.transpose(1, 2), k, dim=-1)  # (n, e, k)
         g = g.to(dt)
+        x = x.to(dt)
+        w1, w2 = self.w1.to(dt), self.w2.to(dt)
 
-        iota = torch.arange(t, device=x.device)
-        onehot = (m[..., None] == iota).to(dt).reshape(n, e * k, t)
-        xg = torch.bmm(onehot, x.to(dt))  # (n, e*k, d), rows in (sample, expert, slot) order
-        h = moe_ffn(xg.reshape(n, e, k, d), self.w1.to(dt), self.w2.to(dt))
-        weights = onehot * g.reshape(n, e * k, 1)
-        return torch.bmm(weights.transpose(1, 2), h.reshape(n, e * k, d))  # (n, t, d)
+        if self.dispatch == "hybrid":
+            idx = m.reshape(n, e * k)
+            xg = dispatch_rows(x, idx)  # (n, e*k, d)
+            h = moe_ffn(xg.reshape(n, e, k, d), w1, w2).reshape(n, e * k, d)
+            return combine_rows(h * g.reshape(n, e * k, 1), idx, t)
+        if self.dispatch in ("onehot", "onehot_dots"):
+            iota = torch.arange(t, device=x.device)
+            onehot = (m[..., None] == iota).to(dt).reshape(n, e * k, t)
+            xg = torch.bmm(onehot, x).reshape(n, e, k, d)  # (sample, expert, slot) rows
+            ffn = moe_ffn if self.dispatch == "onehot" else _moe_ffn_ref
+            h = ffn(xg, w1, w2)
+            weights = onehot * g.reshape(n, e * k, 1)
+            return torch.bmm(weights.transpose(1, 2), h.reshape(n, e * k, d))  # (n, t, d)
+
+        # flat expert-major rows: expert i's picks of sample j at flat row j*t + m
+        gidx = m + (torch.arange(n, device=x.device) * t)[:, None, None]  # (n, e, k)
+        gidx = gidx.transpose(0, 1).reshape(e, n * k)
+        xin = gather_expert_rows(x.reshape(n * t, d), gidx)  # (e, n*k, d)
+        ffn = moe_ffn_expert_major if self.dispatch == "gather" else _moe_ffn_em_ref
+        h = ffn(xin, w1, w2)
+        out = h * g.transpose(0, 1).reshape(e, n * k, 1)
+        return combine_expert_rows(out, gidx, n * t).reshape(n, t, d)
 
 
 # ------------------------------------------------------------------- attention

@@ -3,19 +3,21 @@
 Counterpart of ``micro_diffusion_tpu/ops/attention.py``. The dispatch rules are
 the JAX package's, with "on the accelerator" read as "on a CUDA tensor":
 
-  'auto'       - on the card, the flash kernel (``flash_attention_lane``) where
+  'auto'       - on the card, the flash kernel (``flash_attention_lane``, K1) where
                  it applies (head_dim 64, even H); otherwise the ``flash_bh``
-                 kernel at Tq >= 512 and the plain path below.
+                 kernel (K4) at Tq >= 512 and the plain path below.
   'xla'        - the plain path (:func:`_xla_attention`).
   'flash'      - the lane kernel where it applies, else ``flash_bh``.
   'flash_lane' - force the lane kernel (its plain version on a CPU tensor).
-  'flash_bh', 'flash_bthd' - TPU kernels not ported yet: they raise.
+  'flash_bh'   - force the whole-K kernel (``flash_attention_bh``, K4).
+  'flash_bthd' - a TPU kernel not ported yet (K5): it raises.
 
 On a CPU tensor 'auto' takes the plain path, as the JAX package does off the TPU.
 """
 
 import torch
 
+from .flash_attention_bh import flash_attention_bh
 from .flash_attention_lane import flash_attention_lane, supported as lane_supported
 
 
@@ -27,10 +29,7 @@ def _xla_attention(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-_UNPORTED = {
-    "flash_bh": "flash_attention_bh (ROADMAP queue B, K4)",
-    "flash_bthd": "flash_attention (ROADMAP queue B, K5)",
-}
+_UNPORTED = {"flash_bthd": "flash_attention (ROADMAP queue B, K5)"}
 
 
 def _dispatch(q, k, v, *, scale: float, impl: str):
@@ -47,6 +46,8 @@ def _dispatch(q, k, v, *, scale: float, impl: str):
         impl = "flash_lane" if lane_ok else "flash_bh"
     if impl == "flash_lane":
         return flash_attention_lane(q, k, v, scale)
+    if impl == "flash_bh":
+        return flash_attention_bh(q, k, v, scale)
     if impl in _UNPORTED:
         raise NotImplementedError(
             f"attention impl {impl!r} needs the unported kernel {_UNPORTED[impl]}")

@@ -124,15 +124,17 @@ def test_init_shapes_and_zero_layers():
 def test_unported_modes_raise():
     """Modes whose kernels or policies are not ported raise naming the ROADMAP; the
     ones ported with the training slices (remat 'full' and 'dots', fused adaLN,
-    mask_ratio > 0) build and run."""
-    for kw in (dict(remat=True, remat_policy="attn_moe"), dict(moe_dispatch="gather"),
-               dict(attention_impl="flash_bh"), dict(attention_impl="flash_bthd")):
+    mask_ratio > 0, every moe_dispatch, attention 'flash_bh') build and run."""
+    for kw in (dict(remat=True, remat_policy="attn_moe"), dict(attention_impl="flash_bthd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta", **kw)
-    for kw in (dict(remat=True, remat_policy="dots"), dict(fused_adaln=True)):
+    for kw in (dict(remat=True, remat_policy="dots"), dict(fused_adaln=True),
+               dict(moe_dispatch="gather"), dict(attention_impl="flash_bh")):
         tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta", **kw)
     model = tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="cpu",
-                                  remat=True).init_weights(torch.Generator().manual_seed(0))
+                                  remat=True, moe_dispatch="gather",
+                                  attention_impl="flash_bh").init_weights(
+                                      torch.Generator().manual_seed(0))
     x = torch.zeros(1, 4, 16, 16, requires_grad=True)
     out = model.forward_without_cfg(x, torch.zeros(1), torch.zeros(1, 8, 32), mask_ratio=0.5,
                                     generator=torch.Generator().manual_seed(1))

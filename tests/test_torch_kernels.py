@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions at the
 MicroDiT-XL sampling (forward) and stage-1 training (backward, fused adaLN) shapes,
+the expert-major MoE kernels (K3) and the whole-K attention (K4) at the 512px ones,
 in bf16 on the card. Marked `cuda`: each test skips
 without a card (decided inside the test). Run on the card with
 
@@ -180,3 +181,88 @@ def test_layernorm_modulate_refuses_what_it_does_not_take():
     sb = torch.zeros(2, 1032, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         tadaln.layernorm_modulate(xb, None, sb, sb)  # D above the register row
+
+
+tbh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,d,f", [(8, 2048, 1024, 3840), (8, 8192, 768, 3072),
+                                     (8, 4096, 1024, 768), (8, 8192, 512, 2048),
+                                     (2, 48, 128, 256)])
+def test_moe_ffn_expert_major_kernels_match_plain(e, m, d, f):
+    """K3 forward and backward at the 512px path's expert-major shapes (XL stage-3
+    backbone and mixer, stage 4; Tiny's mixer) and a small one; m up to 8192 rows
+    per expert."""
+    gen = _card()
+    xg = torch.randn(e, m, d, generator=gen, device="cuda").bfloat16()
+    w1 = (0.02 * torch.randn(e, d, f, generator=gen, device="cuda")).bfloat16()
+    w2 = (0.02 * torch.randn(e, f, d, generator=gen, device="cuda")).bfloat16()
+    do = torch.randn(e, m, d, generator=gen, device="cuda").bfloat16()
+    before = tmoe.moe_ffn_expert_major.launches, tmoe.moe_ffn_expert_major_bwd.launches
+    out = tmoe.moe_ffn_expert_major(xg, w1, w2)
+    got = tmoe.moe_ffn_expert_major_bwd(xg, w1, w2, do)
+    torch.cuda.synchronize()
+    assert (tmoe.moe_ffn_expert_major.launches, tmoe.moe_ffn_expert_major_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = tmoe.moe_ffn_expert_major_plain(xg, w1, w2)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+    for g, r in zip(got, tmoe.moe_ffn_expert_major_bwd_plain(xg, w1, w2, do)):
+        assert _rel_err(g, r) <= BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d", [(16, 1024, 1024, 16, 32), (16, 1024, 77, 16, 32),
+                                         (16, 1024, 1024, 8, 32), (4, 1024, 1024, 3, 16),
+                                         (4, 512, 77, 5, 16), (2, 300, 200, 3, 64),
+                                         (2, 77, 77, 1, 32)])
+def test_flash_attention_bh_kernels_match_plain(b, tq, tk, h, d):
+    """K4 forward and backward at Tiny's 512px shapes (D = 32), Micro's D = 16, odd
+    head counts and ragged lengths; k and v strided views of one packed tensor, as
+    the cross-attention hands them over."""
+    gen = _card()
+    q = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(b, tk, 2, h * d, generator=gen, device="cuda").bfloat16()
+    k, v = kv[:, :, 0].view(b, tk, h, d), kv[:, :, 1].view(b, tk, h, d)
+    do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    before = tbh.flash_attention_bh.launches, tbh.flash_attention_bh_bwd.launches
+    out = tbh.flash_attention_bh(q, k, v)
+    got = tbh.flash_attention_bh_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (tbh.flash_attention_bh.launches, tbh.flash_attention_bh_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = tbh.flash_attention_bh_plain(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+    for g, r in zip(got, tbh.flash_attention_bh_bwd_plain(q, k, v, do)):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert _rel_err(g, r) <= BWD_TOL
+
+
+@pytest.mark.cuda
+def test_k3_k4_refuse_what_they_do_not_take():
+    """fp32 raises; a head_dim the K4 kernels are not built for raises on the card
+    (never the plain version quietly); through autograd each launches once forward
+    and once backward."""
+    gen = _card()
+    q = torch.zeros(2, 64, 3, 32, device="cuda")
+    with pytest.raises(TypeError):
+        tbh.flash_attention_bh(q, q, q)
+    q48 = torch.zeros(2, 64, 3, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        tbh.flash_attention_bh(q48, q48, q48)
+    qb = torch.randn(2, 64, 3, 32, generator=gen, device="cuda").bfloat16().requires_grad_()
+    before = tbh.flash_attention_bh.launches, tbh.flash_attention_bh_bwd.launches
+    tbh.flash_attention_bh(qb, qb, qb).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tbh.flash_attention_bh.launches, tbh.flash_attention_bh_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    xg = torch.zeros(2, 32, 128, device="cuda", dtype=torch.bfloat16)
+    w1 = torch.zeros(2, 128, 256, device="cuda", dtype=torch.bfloat16).requires_grad_()
+    w2 = torch.zeros(2, 256, 128, device="cuda", dtype=torch.bfloat16)
+    before = tmoe.moe_ffn_expert_major.launches, tmoe.moe_ffn_expert_major_bwd.launches
+    tmoe.moe_ffn_expert_major(xg, w1, w2).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tmoe.moe_ffn_expert_major.launches, tmoe.moe_ffn_expert_major_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError):
+        tmoe.moe_ffn_expert_major(xg.float(), w1.float(), w2.float())

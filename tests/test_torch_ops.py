@@ -102,10 +102,14 @@ def test_cpu_tensors_never_launch_kernels():
 
 
 def test_unported_attention_impls_raise():
+    """'flash_bthd' (K5) still raises naming the ROADMAP; 'flash_bh' and 'flash' off
+    the lane shapes (head_dim 16: the bh kernel, K4) run, on a CPU tensor through
+    K4's plain version, which is the plain attention's function."""
     q = torch.zeros(1, 8, 2, 64)
-    for impl in ("flash_bh", "flash_bthd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattention.dot_product_attention(q, q, q, impl=impl)
-    q16 = torch.zeros(1, 8, 2, 16)  # 'flash' off the lane shapes is the bh kernel
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattention.dot_product_attention(q16, q16, q16, impl="flash")
+        tattention.dot_product_attention(q, q, q, impl="flash_bthd")
+    q16 = torch.from_numpy(rand((1, 8, 3, 16), 10))
+    ref = tattention._xla_attention(q16, q16, q16, 16**-0.5)
+    for impl in ("flash_bh", "flash"):
+        out = tattention.dot_product_attention(q16, q16, q16, impl=impl)
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)

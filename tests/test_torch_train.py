@@ -299,7 +299,9 @@ def test_optimizer_matches_optax(opts):
                  for j, (k, v) in enumerate(params.items())}
         upd, sj = jax.jit(tx_j.update)({k: jnp.asarray(g) for k, g in grads.items()}, sj, pj)
         pj = jax.tree.map(lambda p, u: p + u, pj, upd)
-        st = tx_t.step(pt, {k: torch.from_numpy(g) for k, g in grads.items()}, st)
+        # the port clips its gradients in place: give it copies, or it rewrites the
+        # numpy buffers that JAX's asynchronous update may not have read yet
+        st = tx_t.step(pt, {k: torch.from_numpy(g.copy()) for k, g in grads.items()}, st)
     adam_states = [s for s in jax.tree_util.tree_leaves(
         sj, is_leaf=lambda s: hasattr(s, "mu")) if hasattr(s, "mu")]
     mu, nu = {}, {}

@@ -151,8 +151,12 @@ def _targets(node):
 def test_recipes_and_overlays_load():
     """The four recipes load to the JAX loader's dicts; the four H100 overlays carry
     the per-rank batch 256, the reference's microbatches, fused adaLN, remat 'dots'
-    and the card; every _target_ resolves to a port callable; others raise."""
+    at 256px and 'full' with the 'gather' dispatch at 512px (the faster policy
+    there, the overlays' comments give the card's numbers), and the card; every
+    _target_ resolves to a port callable; others raise."""
     microbatches = dict(zip(STAGES, (256, 64, 32, 16)))
+    policies = dict(zip(STAGES, ("dots", "dots", "full", "full")))
+    dispatch = dict(zip(STAGES, ("onehot", "onehot", "gather", "gather")))
     for stage in STAGES:
         cfg = tconfig.load_config(os.path.join(ROOT, "configs"), stage)
         assert cfg == jconfig.load_config(os.path.join(ROOT, "configs"), stage)
@@ -162,14 +166,18 @@ def test_recipes_and_overlays_load():
         assert over["trainer"]["device_train_microbatch_size"] == microbatches[stage]
         assert over["trainer"]["device"] == "cuda"
         assert over["model"]["fused_adaln"] is True
-        assert over["model"]["remat"] is True and over["model"]["remat_policy"] == "dots"
+        assert over["model"]["remat"] is True
+        assert over["model"]["remat_policy"] == policies[stage]
+        assert over["model"]["moe_dispatch"] == dispatch[stage]
         for target in set(_targets(over)) | set(_targets(cfg)):
             fn = tconfig.resolve_target(target)
             assert callable(fn) and fn.__module__.startswith("micro_diffusion_tpu_torch."), \
                 target
         # the overlay's model block builds as written (on the meta device: no weights)
         model = tconfig.instantiate(over["model"], device="meta")
-        assert model.dit.remat_policy == "dots" and model.latent_res == over["model"]["latent_res"]
+        assert model.dit.remat_policy == policies[stage]
+        assert model.latent_res == over["model"]["latent_res"]
+        assert model.dit.blocks[1].mlp.dispatch == dispatch[stage]
         assert model.dit.blocks[0].norm1.fused_adaln
     for bad in ("os.system", "micro_diffusion_tpu.models.vae.AutoencoderKL",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
@@ -235,30 +243,28 @@ class _Collect:
         pass
 
 
-def test_fit_matches_jax_trainer(dataset_dir, monkeypatch):
-    """3 steps of Trainer.fit (Micro, fp32, mask 0.75, batch 16 in K = 2
-    microbatches, clip 0.25, cosine warmup 2 steps to lr 1e-4) in both frameworks
-    on the same dataset. The port starts from the JAX trainer's initial params;
-    its per-batch step gets JAX's draws (fold_in(PRNGKey(seed), step), then the
-    microbatch index; sigma / noise / mask keys split from that). Per-step loss
-    and grad norm within 1e-3 relative, lr within 1e-6; the final params within
-    2 * (sum of the lrs) absolute: Adam moves an entry by about lr a step whatever
-    its gradient, so an entry whose tiny gradient differs in sign may part by up
-    to twice that; the mean difference is held 100x tighter."""
+def _fit_parity(cfg, monkeypatch, mask_ratio, res=RES):
+    """Trainer.fit of ``cfg`` in both frameworks on the same dataset, the port from
+    the JAX trainer's initial params and with its per-step draws; returns both
+    trainers, the per-window host metrics of each, and the JAX final params and EMA
+    under the port's names."""
     # the JAX trainer on one device, as the port's (tests/conftest.py makes 8 CPU devices)
     make_mesh = jtrainer_module.make_mesh
     monkeypatch.setattr(jtrainer_module, "make_mesh", lambda data=None, fsdp=1, tensor=1:
                         make_mesh(data=1, devices=jax.devices()[:1]))
-    cfg = make_config(dataset_dir)
     jtrainer = jax_build_from_config(copy.deepcopy(cfg))
     init = jax.tree.map(np.asarray, jtrainer.state.params)
     jcollect = _Collect()
     jtrainer.callbacks.append(jcollect)
     jtrainer.fit()
-    jfinal = tinterop.params_to_torch_state_dict(jax.tree.map(np.asarray, jtrainer.state.params))
+    to_torch = lambda tree: tinterop.params_to_torch_state_dict(jax.tree.map(np.asarray, tree))
+    jfinal = to_torch(jtrainer.state.params)
+    jema = to_torch(jtrainer.state.ema_params) if jtrainer.state.ema_params is not None else None
 
     ptrainer = cli.build_from_config(copy.deepcopy(cfg))
     tinterop.load_jax_params(ptrainer.model.dit, init)
+    if ptrainer.state.ema_params is not None:
+        ptrainer._mirror_ema()  # the EMA starts as a copy of the initial params
     tcollect = _Collect()
     ptrainer.callbacks.append(tcollect)
     dit, mb = jtrainer.model.dit, cfg["trainer"]["device_train_microbatch_size"]
@@ -271,8 +277,8 @@ def test_fit_matches_jax_trainer(dataset_dir, monkeypatch):
         for i in range(k):
             r_sigma, r_noise, r_mask = jax.random.split(jax.random.fold_in(rng, i), 3)
             out.append((jax.random.normal(r_sigma, (mb, 1, 1, 1)),
-                        jax.random.normal(r_noise, (mb, 4, RES, RES)),
-                        jax_mask(dit, init, r_mask, mb, (RES // 2) ** 2, 0.75)))
+                        jax.random.normal(r_noise, (mb, 4, res, res)),
+                        jax_mask(dit, init, r_mask, mb, (res // 2) ** 2, mask_ratio)))
         return out
 
     step_fn = ptrainer._step_fn
@@ -286,19 +292,67 @@ def test_fit_matches_jax_trainer(dataset_dir, monkeypatch):
 
     ptrainer._step_fn = with_jax_draws
     ptrainer.fit()
+    return ptrainer, tcollect.rows, jcollect.rows, jfinal, jema
 
-    assert len(tcollect.rows) == len(jcollect.rows) == 3
-    for t, j in zip(tcollect.rows, jcollect.rows):
+
+def _assert_fit_parity(ptrainer, trows, jrows, jfinal, steps):
+    """Per-step loss and grad norm within 1e-3 relative, lr within 1e-6; the final
+    params within 2 * (sum of the lrs) absolute (Adam moves an entry by about lr a
+    step whatever its gradient, so an entry whose tiny gradient differs in sign may
+    part by up to twice that); the mean difference 100x tighter."""
+    assert len(trows) == len(jrows) == steps
+    for t, j in zip(trows, jrows):
         np.testing.assert_allclose(t["loss"], j["loss"], rtol=1e-3)
         np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=1e-3)
         np.testing.assert_allclose(t["lr"], j["lr"], rtol=1e-6)
-    tol = 2 * sum(r["lr"] for r in jcollect.rows)
+    tol = 2 * sum(r["lr"] for r in jrows)
     diffs = []
     for name, p in ptrainer.state.params.items():
         d = np.abs(p.detach().numpy() - jfinal[name])
         diffs.append(d.mean())
         assert d.max() <= tol, (name, d.max(), tol)
     assert np.mean(diffs) <= tol / 100
+    return tol
+
+
+def test_fit_matches_jax_trainer(dataset_dir, monkeypatch):
+    """3 steps of Trainer.fit (Micro, fp32, mask 0.75, batch 16 in K = 2
+    microbatches, clip 0.25, cosine warmup 2 steps to lr 1e-4) in both frameworks
+    on the same dataset. The port starts from the JAX trainer's initial params;
+    its per-batch step gets JAX's draws (fold_in(PRNGKey(seed), step), then the
+    microbatch index; sigma / noise / mask keys split from that). Per-step loss
+    and grad norm within 1e-3 relative, lr within 1e-6; the final params within
+    2 * (sum of the lrs) absolute: Adam moves an entry by about lr a step whatever
+    its gradient, so an entry whose tiny gradient differs in sign may part by up
+    to twice that; the mean difference is held 100x tighter."""
+    cfg = make_config(dataset_dir)
+    ptrainer, trows, jrows, jfinal, _ = _fit_parity(cfg, monkeypatch, 0.75)
+    _assert_fit_parity(ptrainer, trows, jrows, jfinal, 3)
+
+
+def test_fit_matches_jax_trainer_at_512px_stage_settings(dataset_dir, monkeypatch):
+    """The stage-3/4 settings through Trainer.fit in both frameworks: Micro, fp32,
+    moe_dispatch 'gather', pos_interp_scale 2, the stage-3/4 noise schedule, an
+    in-state EMA from step 1 (so it decays within the run), K = 2, constant lr
+    after a 1-step warmup, clip 0.5. The tolerances of the stage-1 parity test,
+    the EMA held to the params' own."""
+    cfg = make_config(dataset_dir)
+    cfg["model"].update(moe_dispatch="gather", pos_interp_scale=2.0, p_mean=0.0, p_std=0.6)
+    cfg["algorithms"] = {
+        "gradient_clipping": {"clipping_type": "norm", "clip_norm": 0.5},
+        "ema": {"_target_": "diffusion.algorithms.ema.EMA", "smoothing": 0.9,
+                "ema_start": "1ba", "update_interval": "1ba"}}
+    cfg["scheduler"] = {"_target_": "composer.optim.ConstantWithWarmupScheduler",
+                        "t_warmup": "1ba"}
+    ptrainer, trows, jrows, jfinal, jema = _fit_parity(cfg, monkeypatch, 0.75)
+    assert ptrainer.model.dit.blocks[1].mlp.dispatch == "gather"
+    tol = _assert_fit_parity(ptrainer, trows, jrows, jfinal, 3)
+    assert jema is not None
+    lagging = 0
+    for name, e in ptrainer.state.ema_params.items():
+        assert np.abs(e.numpy() - jema[name]).max() <= tol, name
+        lagging += not torch.equal(e, ptrainer.state.params[name])
+    assert lagging >= 0.9 * len(jema)  # the EMA decayed: it lags the moving params
 
 
 # ------------------------------------------------------------------ checkpoints
@@ -372,6 +426,112 @@ def test_ema_stage_transition(dataset_dir, tmp_path):
     ckpt = torch.load(tmp_path / "withema" / "4" / ttrainer.CKPT_FILE, weights_only=True)
     key = "blocks.0.attn.qkv.weight"
     assert not torch.equal(ckpt["ema_params"][key], ckpt["params"][key])
+
+
+def test_stage_chain_2_to_4_through_the_overlays(tmp_path):
+    """The recipe's stage handoffs through the H100 overlays, at Micro size on the
+    CPU (the chain chip_smoke.py's [chain] runs with Tiny on the card): stage 2 at
+    latent 16 (64 tokens) for 2 steps and a save; stage 3 at latent 32 (256 tokens,
+    pos_interp_scale 2, 'gather') loads stage 2's weights only, across the change of
+    pos_embed (a computed buffer, rebuilt at 256 tokens), every parameter present,
+    the EMA mirrored, the step and moments afresh; 2 steps and a save; stage 4 loads
+    stage 3's full state with the recipe's load_ignore_keys: params, both moments,
+    the EMA, the step and the count equal what stage 3 saved, bit for bit; then 2
+    steps and an eval."""
+    ds = tmp_path / "ds"
+    rng = np.random.default_rng(3)
+    with MDSWriter(out=str(ds), columns={"caption_latents": "bytes", "latents_128": "bytes",
+                                         "latents_256": "bytes"}) as w:
+        for _ in range(24):
+            w.write({"caption_latents": rng.standard_normal((1, 77, 1024))
+                     .astype(np.float16).tobytes(),
+                     "latents_128": (0.5 * rng.standard_normal((4, 16, 16)))
+                     .astype(np.float16).tobytes(),
+                     "latents_256": (0.5 * rng.standard_normal((4, 32, 32)))
+                     .astype(np.float16).tobytes()})
+
+    def stage(name, *extra):
+        argv = ["--config-path", OVERLAYS, "--config-name", name, "trainer.device=cpu",
+                "model.dit_arch=MicroDiT_Micro_2", "model.dtype=float32",
+                "model.fused_adaln=false", "model.remat=false",
+                f"dataset.train.datadir={ds}", f"dataset.eval.datadir={ds}",
+                "dataset.train_batch_size=8", "dataset.eval_batch_size=8",
+                "trainer.device_train_microbatch_size=4", "trainer.eval_interval=0",
+                "trainer.save_interval=0", "trainer.save_num_checkpoints_to_keep=1",
+                f"trainer.save_folder={tmp_path / name}",
+                f"callbacks.image_monitor.prompts_file={ROOT}/configs/eval_prompts.yaml",
+                "logger.progress._target_=micro_diffusion_tpu_torch.train.callbacks.JSONLLogger",
+                f"logger.progress.path={tmp_path / name}.jsonl", *extra]
+        return tconfig.load_config(OVERLAYS, name, argv[4:])
+
+    s2 = cli.build_from_config(stage("res_256_finetune", "model.latent_res=16",
+                                     "dataset.image_size=128", "trainer.load_path=null",
+                                     "trainer.max_duration=2ba"))
+    s2.fit()
+    assert s2.model.dit.pos_embed.shape == (1, 64, 64)
+
+    s3 = cli.build_from_config(stage(
+        "res_512_pretrain", "model.latent_res=32", "dataset.image_size=256",
+        f"trainer.load_path={tmp_path / 'res_256_finetune'}", "trainer.max_duration=2ba",
+        "algorithms.ema.ema_start=1ba"))
+    assert s3.model.dit.pos_embed.shape == (1, 256, 64)
+    assert s3.model.dit.blocks[1].mlp.dispatch == "gather"
+    assert set(s3.state.params) == set(s2.state.params)
+    assert s3.state.step == 0 and not any(m.any() for m in s3.state.opt_state.mu.values())
+    for k, p in s2.state.params.items():
+        assert torch.equal(s3.state.params[k], p) and torch.equal(s3.state.ema_params[k], p), k
+    s3.fit()
+    saved = torch.load(tmp_path / "res_512_pretrain" / "2" / ttrainer.CKPT_FILE,
+                       weights_only=True)
+
+    s4 = cli.build_from_config(stage(
+        "res_512_finetune", "model.latent_res=32", "dataset.image_size=256",
+        f"trainer.load_path={tmp_path / 'res_512_pretrain'}", "trainer.max_duration=4ba",
+        "trainer.eval_interval=4ba", "algorithms.ema.ema_start=1ba"))
+    assert s4.model.dit.blocks[1].mlp.dispatch == "gather"
+    assert s4.state.step == 2 and s4.state.opt_state.count == saved["opt_state"]["count"]
+    for k in saved["params"]:
+        assert torch.equal(s4.state.params[k], saved["params"][k]), k
+        assert torch.equal(s4.state.ema_params[k], saved["ema_params"][k]), k
+        assert torch.equal(s4.state.opt_state.mu[k], saved["opt_state"]["mu"][k]), k
+        assert torch.equal(s4.state.opt_state.nu[k], saved["opt_state"]["nu"][k]), k
+    evals = []
+    s4.callbacks.append(type("Eval", (_Collect,), {"eval_end": lambda self, t, loss:
+                                                     evals.append(loss)})())
+    s4.fit()
+    assert s4.state.step == 4 and len(evals) == 1 and np.isfinite(evals[0])
+
+
+def test_train_e2e_script_chains_the_four_stages(tmp_path):
+    """micro_diffusion_tpu_torch/train_e2e.sh runs the four recipes through the H100
+    overlays, each stage loading the one before from ./trained_models/<exp_name>/
+    (Micro on the CPU, 1 step: stages 2 and 4 resume at the loaded step and only
+    save, stage 3 trains a step from stage 2's weights at 512px)."""
+    ds = tmp_path / "ds"
+    rng = np.random.default_rng(4)
+    with MDSWriter(out=str(ds), columns={"caption_latents": "bytes", "latents_256": "bytes",
+                                         "latents_512": "bytes"}) as w:
+        for _ in range(8):
+            w.write({"caption_latents": rng.standard_normal((1, 77, 1024))
+                     .astype(np.float16).tobytes(),
+                     "latents_256": rng.standard_normal((4, 32, 32)).astype(np.float16).tobytes(),
+                     "latents_512": rng.standard_normal((4, 64, 64)).astype(np.float16).tobytes()})
+    script = os.path.join(ROOT, "micro_diffusion_tpu_torch", "train_e2e.sh")
+    overrides = ["trainer.device=cpu", "model.dit_arch=MicroDiT_Micro_2", "model.dtype=float32",
+                 "model.fused_adaln=false", "model.remat=false", f"dataset.train.datadir={ds}",
+                 f"dataset.eval.datadir={ds}", "dataset.train_batch_size=4",
+                 "trainer.device_train_microbatch_size=4", "trainer.max_duration=1ba",
+                 f"callbacks.image_monitor.prompts_file={ROOT}/configs/eval_prompts.yaml",
+                 "logger.progress._target_=micro_diffusion_tpu_torch.train.callbacks.JSONLLogger",
+                 f"logger.progress.path={tmp_path / 'metrics.jsonl'}"]
+    env = dict(os.environ, PYTHON=sys.executable, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run(["bash", script, *overrides], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    for exp in ("MicroDiTXL_mask_75_res_256_pretrain", "MicroDiTXL_mask_0_res_256_finetune",
+                "MicroDiTXL_mask_75_res_512_pretrain", "MicroDiTXL_mask_0_res_512_finetune"):
+        assert os.listdir(tmp_path / "trained_models" / exp) == ["1"], exp
+    assert "loaded weights from" in out.stdout and out.stdout.count("loaded full state") == 2
 
 
 @pytest.mark.parametrize("change,match", [

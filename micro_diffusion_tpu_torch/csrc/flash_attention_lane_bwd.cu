@@ -1,43 +1,46 @@
-// Non-causal multi-head attention backward, head_dim 64, for Hopper (sm_90a).
+// Non-causal multi-head attention backward, head_dim 16, 32 or 64, any head count,
+// for Hopper (sm_90a).
 //
-// Replaces: micro_diffusion_tpu/ops/flash_attention_lane.py:_bwd_kernel (the
-// lane-packed Pallas TPU kernel behind flash_attention_lane's backward rule).
+// Replaces the backward kernels of the same two Pallas TPU kernels as
+// flash_attention_lane.cu (one function, two TPU layouts):
+//   micro_diffusion_tpu/ops/flash_attention_lane.py:_bwd_kernel (K1b, head_dim 64)
+//   micro_diffusion_tpu/ops/flash_attention_bh.py:_bwd_kernel (K4b, 'flash_bh').
 //
-// Contract (same as the TPU kernel), per (batch, head), nothing saved from the
-// forward but q, k, v:
+// Contract (the TPU kernel's), per (batch, head), nothing saved from the forward
+// but q, k, v: the row statistics are recomputed and every 1/l rides a (T, D)
+// tile, never the (Tq, Tk) one.
 //   s = q k^T (fp32), e = exp2((s - rowmax) * scale * log2(e)), inv_l = 1/rowsum(e)
 //   dv   = bf16(e)^T @ bf16(do * inv_l)
 //   dp   = do @ v^T (fp32),  delta = rowsum(e * dp) * inv_l
 //   ds_u = bf16(e * (dp - delta))
-//   dq   = (ds_u @ k) * scale * inv_l
+//   dq   = (ds_u @ k) * (scale * inv_l)
 //   dk   = ds_u^T @ bf16(q * scale * inv_l)
 // All products are bf16 x bf16 with fp32 accumulation (mma.sync m16n8k16);
 // dq, dk, dv are stored as bf16.
 //
-// Layout: q, do (B, Tq, H, 64) and k, v (B, Tk, H, 64) bf16, read through their
-// (batch, seq, head) strides (v is a strided view of a packed projection), last
-// dim contiguous; dq, dk, dv written through theirs.
+// Layout: q, do (B, Tq, H, D) and k, v (B, Tk, H, D) bf16, read through their
+// (batch, seq, head) strides, head dim contiguous; dq, dk, dv written through
+// theirs. No (B*H, T, D) relayout.
 //
-// Why two kernels. The TPU kernel holds one head's whole q, k, v in VMEM. Here
-// one head's K/V at T = 1024 is 256 KB, over the 227 KB a block may use, so the
-// work is tiled over keys and over queries, and the row statistics the
-// formula needs (row max, 1/l, delta) must be complete before ds exists:
+// Why two kernels. The TPU kernels holds one head's whole q, k, v in VMEM; at
+// T = 1024 the (Tq, Tk) fp32 score tile alone is 4 MB, far over the 227 KB of
+// shared memory a block may use, so the work is tiled over keys and queries,
+// and the row statistics must be complete before ds exists:
 //   pass 1 (attn_bwd_dq_kernel), one block per 64-query tile: sweep the key
-//     tiles once for the row max, l and sum(e * dp) (online, rescaled like the
-//     forward's softmax), store (max, inv_l, delta) per row to a small fp32
-//     scratch, then sweep the key tiles again for ds_u and dq.
-//   pass 2 (attn_bwd_dkdv_kernel), one block per 64-key tile: dk and dv stay in
-//     registers while the block loops over the query tiles, recomputing s^T,
-//     e^T and dp^T from the stored row statistics.
+//     tiles once for the row max, l and sum(e * dp) (online), store (max, inv_l,
+//     delta) per row to a small fp32 scratch, then sweep again for ds_u and dq.
+//   pass 2 (attn_bwd_dkdv_kernel), one block per 64-key tile: dk and dv stay
+//     in registers while the block loops over the query tiles, recomputing s^T,
+//     e^T and dp^T from the stored statistics.
 // e is recomputed with the exact row max, so the function is the contract's;
 // only the summation order of l and delta differs from a one-shot row sum.
 //
-// Bound on this card: per (batch, head) 5 products of 2*Tq*Tk*64 FLOPs against
-// 128*(2*Tq + 2*Tk) bytes (q, do, k, v read; dq, dk, dv written once) - 10*Tq*Tk*64
-// / (256*(Tq+Tk)) FLOP/byte: 160 at Tq = Tk = 64, 320 at 256, 640 at 1024. So the
-// stage-1 shapes sit near the H100's ~295 FLOP/byte ridge and 512px is bound by
-// the tensor cores. This design recomputes s and dp in both passes (9 products
-// of work for the contract's 5) and loads K/V twice in pass 1: simple first.
+// Bound on this card: per (batch, head) 5 products of 2*Tq*Tk*D FLOPs against
+// 2*D*(3*Tq + 4*Tk) bytes; 10*Tq*Tk*D / (2*D*(3Tq + 4Tk)) FLOP/byte is 183 at
+// Tq = Tk = 256 and ~100 for the cross-attention at Tk = 77 (bytes), 731 at
+// Tq = Tk = 1024 (tensor cores). This design recomputes s and dp in both passes (9 products of work
+// for the contract's 5) and, at D = 32, spends more on the fp32 softmax work
+// of each 64 x 64 tile than on its MMAs: simple first.
 //
 // Ragged lengths: keys past Tk are zero-filled in shared memory and masked (to
 // -inf in pass 1, e = 0 in pass 2); queries past Tq are zero-filled and get
@@ -50,9 +53,7 @@
 
 namespace {
 
-constexpr int kD = 64;       // head dim
-constexpr int kT = 64;       // rows per tile (queries or keys)
-constexpr int kLD = kD + 8;  // shared row stride (bf16): 144 B, conflict-free ldmatrix
+constexpr int kT = 64;  // rows per tile (queries or keys)
 constexpr int kThreads = 128;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -95,55 +96,59 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Copy rows [row0, row0+64) of one (batch, head) slice into a 64 x kLD tile;
+// Copy rows [row0, row0+64) of one (batch, head) slice into a 64 x (D+8) tile;
 // rows at or past `rows` are zero-filled and never read from device memory.
+template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
                                           int row0, int rows, int row_stride, int tid) {
+  constexpr int LD = D + 8, CH = D / 8;
 #pragma unroll
-  for (int i = tid; i < kT * (kD / 8); i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
+  for (int i = tid; i < kT * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * 8;
     const int row = row0 + r;
     const bool ok = row < rows;
-    cp_async16(dst + r * kLD + c, ok ? base + (int64_t)row * row_stride + c : base, ok);
+    cp_async16(dst + r * LD + c, ok ? base + (int64_t)row * row_stride + c : base, ok);
   }
 }
 
-// A fragments (16 rows x 64, four k16 steps) of a warp's 16 rows of a tile.
-__device__ __forceinline__ void load_a(uint32_t (&f)[4][4], const __nv_bfloat16* tile, int row0,
-                                       int lane) {
+// A fragments (16 rows x D, D/16 k16 steps) of a warp's 16 rows of a tile.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], const __nv_bfloat16* tile,
+                                       int row0, int lane) {
+  constexpr int LD = D + 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(f[kk], tile + (row0 + (lane & 15)) * kLD + kk * 16 + (lane >> 4) * 8);
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(f[kk], tile + (row0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
 }
 
-// c[8][4] = A (this warp's 16 rows, k = head dim) @ B^T, B a 64 x 64 tile whose
-// rows are the n index and whose columns are the head dim (k or v or q or do).
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
+// c[8][4] = A (this warp's 16 rows, k = head dim) @ B^T, B a 64 x D tile whose
+// rows are the n index and whose columns are the head dim.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[D / 16][4],
                                         const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
 #pragma unroll
   for (int i = 0; i < 8; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       const int mat = lane >> 3;
       const int n = np * 16 + (mat >> 1) * 8 + (lane & 7);
       uint32_t bf[4];
-      ldmatrix_x4(bf, b + n * kLD + kk * 16 + (mat & 1) * 8);
+      ldmatrix_x4(bf, b + n * LD + kk * 16 + (mat & 1) * 8);
       mma_bf16(c[2 * np], a[kk], bf[0], bf[1]);
       mma_bf16(c[2 * np + 1], a[kk], bf[2], bf[3]);
     }
   }
 }
 
-// acc[8][4] += P (16 x 64 from c-fragment registers, k = tile rows) @ B, B a
-// 64 x 64 tile whose rows are the k index and whose columns are the head dim.
-__device__ __forceinline__ void mma_pb(float (&acc)[8][4], const float (&p)[8][4],
+// acc[D/8][4] += P (16 x 64 from c-fragment registers, rounded to bf16, k = tile
+// rows) @ B, B a 64 x D tile whose rows are the k index.
+template <int D>
+__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[8][4],
                                        const __nv_bfloat16* b, int lane) {
+  constexpr int LD = D + 8;
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
     uint32_t pa[4];
@@ -152,9 +157,9 @@ __device__ __forceinline__ void mma_pb(float (&acc)[8][4], const float (&p)[8][4
     pa[2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
     pa[3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
+    for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b + (kc * 16 + (lane & 15)) * kLD + dp * 16 + (lane >> 4) * 8);
+      ldmatrix_x4_trans(bf, b + (kc * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
       mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
       mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
     }
@@ -167,16 +172,20 @@ struct Strides {
 
 // Pass 1: row statistics and dq. Grid (ceil(Tq/64), H, B); warp w owns query
 // rows 16w..16w+15 of the tile; half hf of a c fragment is row g + 8 hf.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                       __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int tq, int tk,
-                       int nh, Strides qs_, Strides ks_, Strides vs_, Strides dos_, Strides dqs_,
-                       float c, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kT * kLD];
-  __shared__ __align__(16) __nv_bfloat16 dos[kT * kLD];
-  __shared__ __align__(16) __nv_bfloat16 ks[kT * kLD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kT * kLD];
+    attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
+                          float* __restrict__ stats, int tq, int tk, int nh, Strides qs_,
+                          Strides ks_, Strides vs_, Strides dos_, Strides dqs_, float c,
+                          float scale) {
+  constexpr int LD = D + 8, NT = D / 8;
+  __shared__ __align__(16) __nv_bfloat16 qs[kT * LD];
+  __shared__ __align__(16) __nv_bfloat16 dos[kT * LD];
+  __shared__ __align__(16) __nv_bfloat16 ks[kT * LD];
+  __shared__ __align__(16) __nv_bfloat16 vs[kT * LD];
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -187,14 +196,14 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* kb = k + (int64_t)b * ks_.sb + (int64_t)h * ks_.sh;
   const __nv_bfloat16* vb = v + (int64_t)b * vs_.sb + (int64_t)h * vs_.sh;
 
-  load_tile(qs, qb, qt * kT, tq, qs_.st, tid);
-  load_tile(dos, dob, qt * kT, tq, dos_.st, tid);
+  load_tile<D>(qs, qb, qt * kT, tq, qs_.st, tid);
+  load_tile<D>(dos, dob, qt * kT, tq, dos_.st, tid);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  uint32_t qf[4][4], df[4][4];
-  load_a(qf, qs, warp * 16, lane);
-  load_a(df, dos, warp * 16, lane);
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a<D>(qf, qs, warp * 16, lane);
+  load_a<D>(df, dos, warp * 16, lane);
 
   const int ntiles = (tk + kT - 1) / kT;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, d_run[2] = {0.f, 0.f};
@@ -203,13 +212,13 @@ __global__ void __launch_bounds__(kThreads)
   // sweep 1: row max, l = sum(e), sum(e * dp), online across key tiles
   for (int j = 0; j < ntiles; ++j) {
     __syncthreads();  // the previous tile is no longer read
-    load_tile(ks, kb, j * kT, tk, ks_.st, tid);
-    load_tile(vs, vb, j * kT, tk, vs_.st, tid);
+    load_tile<D>(ks, kb, j * kT, tk, ks_.st, tid);
+    load_tile<D>(vs, vb, j * kT, tk, vs_.st, tid);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    mma_abt(s, qf, ks, lane);
-    mma_abt(dp, df, vs, lane);
+    mma_abt<D>(s, qf, ks, lane);
+    mma_abt<D>(dp, df, vs, lane);
     const int key0 = j * kT;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -261,18 +270,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // sweep 2: ds_u = bf16(e * (dp - delta)); dq += ds_u @ k
-  float acc[8][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   for (int j = 0; j < ntiles; ++j) {
     __syncthreads();
-    load_tile(ks, kb, j * kT, tk, ks_.st, tid);
-    load_tile(vs, vb, j * kT, tk, vs_.st, tid);
+    load_tile<D>(ks, kb, j * kT, tk, ks_.st, tid);
+    load_tile<D>(vs, vb, j * kT, tk, vs_.st, tid);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    mma_abt(s, qf, ks, lane);
-    mma_abt(dp, df, vs, lane);
+    mma_abt<D>(s, qf, ks, lane);
+    mma_abt<D>(dp, df, vs, lane);
     const int key0 = j * kT;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -283,7 +292,7 @@ __global__ void __launch_bounds__(kThreads)
         const float p = ok ? exp2f((s[nt][e] - m_row[hf]) * c) : 0.f;
         s[nt][e] = p * (dp[nt][e] - delta[hf]);  // rounded to bf16 by mma_pb
       }
-    mma_pb(acc, s, ks, lane);
+    mma_pb<D>(acc, s, ks, lane);
   }
 
 #pragma unroll
@@ -293,7 +302,7 @@ __global__ void __launch_bounds__(kThreads)
     if (row < tq) {
       __nv_bfloat16* out = dq + (int64_t)b * dqs_.sb + (int64_t)row * dqs_.st + (int64_t)h * dqs_.sh;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
         *reinterpret_cast<uint32_t*>(out + nt * 8 + 2 * t4) =
             pack_bf16(acc[nt][2 * hf] * cb, acc[nt][2 * hf + 1] * cb);
     }
@@ -302,17 +311,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // Pass 2: dk and dv. Grid (ceil(Tk/64), H, B); warp w owns key rows 16w..16w+15
 // of the tile; fragments hold s^T (rows = keys, columns = queries).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, const float* __restrict__ stats, int tq,
-                         int tk, int nh, Strides qs_, Strides ks_, Strides vs_, Strides dos_,
-                         Strides dks_, Strides dvs_, float c, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kT * kLD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kT * kLD];
-  __shared__ __align__(16) __nv_bfloat16 qs[kT * kLD];   // q, then bf16(q * scale * inv_l)
-  __shared__ __align__(16) __nv_bfloat16 dos[kT * kLD];  // do, then bf16(do * inv_l)
+    attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                            const float* __restrict__ stats, int tq, int tk, int nh,
+                            Strides qs_, Strides ks_, Strides vs_, Strides dos_, Strides dks_,
+                            Strides dvs_, float c, float scale) {
+  constexpr int LD = D + 8, NT = D / 8;
+  __shared__ __align__(16) __nv_bfloat16 ks[kT * LD];
+  __shared__ __align__(16) __nv_bfloat16 vs[kT * LD];
+  __shared__ __align__(16) __nv_bfloat16 qs[kT * LD];   // q, then bf16(q * scale * inv_l)
+  __shared__ __align__(16) __nv_bfloat16 dos[kT * LD];  // do, then bf16(do * inv_l)
   __shared__ float m_s[kT], il_s[kT], dl_s[kT];
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -326,27 +339,27 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t plane = (int64_t)gridDim.z * nh * tq;
   const float* st = stats + ((int64_t)b * nh + h) * tq;
 
-  load_tile(ks, kb, kt * kT, tk, ks_.st, tid);
-  load_tile(vs, vb, kt * kT, tk, vs_.st, tid);
+  load_tile<D>(ks, kb, kt * kT, tk, ks_.st, tid);
+  load_tile<D>(vs, vb, kt * kT, tk, vs_.st, tid);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  uint32_t kf[4][4], vf[4][4];
-  load_a(kf, ks, warp * 16, lane);
-  load_a(vf, vs, warp * 16, lane);
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, ks, warp * 16, lane);
+  load_a<D>(vf, vs, warp * 16, lane);
 
-  float dk_acc[8][4], dv_acc[8][4], s[8][4], dp[8][4];
+  float dk_acc[NT][4], dv_acc[NT][4], s[8][4], dp[8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
   const int ntiles = (tq + kT - 1) / kT;
   for (int i = 0; i < ntiles; ++i) {
     const int q0 = i * kT;
-    __syncthreads();  // the previous tile's Qm / X are no longer read
-    load_tile(qs, qb, q0, tq, qs_.st, tid);
-    load_tile(dos, dob, q0, tq, dos_.st, tid);
+    __syncthreads();  // the previous tile's scaled q / do are no longer read
+    load_tile<D>(qs, qb, q0, tq, qs_.st, tid);
+    load_tile<D>(dos, dob, q0, tq, dos_.st, tid);
     cp_async_commit();
     if (tid < kT) {
       const bool ok = q0 + tid < tq;
@@ -357,8 +370,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait_all();
     __syncthreads();
 
-    mma_abt(s, kf, qs, lane);    // s^T = k q^T
-    mma_abt(dp, vf, dos, lane);  // dp^T = v do^T
+    mma_abt<D>(s, kf, qs, lane);    // s^T = k q^T
+    mma_abt<D>(dp, vf, dos, lane);  // dp^T = v do^T
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -367,19 +380,19 @@ __global__ void __launch_bounds__(kThreads)
         const int key = kt * kT + warp * 16 + g + (e >> 1) * 8;
         const bool ok = (q0 + col < tq) && (key < tk);
         const float p = ok ? exp2f((s[nt][e] - m_s[col]) * c) : 0.f;
-        s[nt][e] = p;                           // e^T, rounded to bf16 by mma_pb
+        s[nt][e] = p;                             // e^T, rounded to bf16 by mma_pb
         dp[nt][e] = p * (dp[nt][e] - dl_s[col]);  // ds_u^T, rounded by mma_pb
       }
     __syncthreads();  // every warp is done reading raw q and do
-    for (int idx = tid; idx < kT * kD; idx += kThreads) {
-      const int r = idx / kD, cc = idx % kD;
+    for (int idx = tid; idx < kT * D; idx += kThreads) {
+      const int r = idx / D, cc = idx % D;
       const float cb = scale * il_s[r];
-      qs[r * kLD + cc] = __float2bfloat16_rn(__bfloat162float(qs[r * kLD + cc]) * cb);
-      dos[r * kLD + cc] = __float2bfloat16_rn(__bfloat162float(dos[r * kLD + cc]) * il_s[r]);
+      qs[r * LD + cc] = __float2bfloat16_rn(__bfloat162float(qs[r * LD + cc]) * cb);
+      dos[r * LD + cc] = __float2bfloat16_rn(__bfloat162float(dos[r * LD + cc]) * il_s[r]);
     }
     __syncthreads();
-    mma_pb(dv_acc, s, dos, lane);   // dv += bf16(e)^T @ bf16(do * inv_l)
-    mma_pb(dk_acc, dp, qs, lane);   // dk += ds_u^T @ bf16(q * scale * inv_l)
+    mma_pb<D>(dv_acc, s, dos, lane);   // dv += bf16(e)^T @ bf16(do * inv_l)
+    mma_pb<D>(dk_acc, dp, qs, lane);   // dk += ds_u^T @ bf16(q * scale * inv_l)
   }
 
 #pragma unroll
@@ -389,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
       __nv_bfloat16* ok_ = dk + (int64_t)b * dks_.sb + (int64_t)key * dks_.st + (int64_t)h * dks_.sh;
       __nv_bfloat16* ov = dv + (int64_t)b * dvs_.sb + (int64_t)key * dvs_.st + (int64_t)h * dvs_.sh;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
         *reinterpret_cast<uint32_t*>(ok_ + nt * 8 + 2 * t4) =
             pack_bf16(dk_acc[nt][2 * hf], dk_acc[nt][2 * hf + 1]);
         *reinterpret_cast<uint32_t*>(ov + nt * 8 + 2 * t4) =
@@ -399,33 +412,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int D>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+           const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+           float* stats, int b, int tq, int tk, int h, Strides qs, Strides ks, Strides vs,
+           Strides ds, Strides dqs, Strides dks, Strides dvs, float c, float scale,
+           cudaStream_t s) {
+  attn_bwd_dq_kernel<D><<<dim3((tq + kT - 1) / kT, h, b), kThreads, 0, s>>>(
+      q, k, v, dout, dq, stats, tq, tk, h, qs, ks, vs, ds, dqs, c, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_kernel<D><<<dim3((tk + kT - 1) / kT, h, b), kThreads, 0, s>>>(
+      q, k, v, dout, dk, dv, stats, tq, tk, h, qs, ks, vs, ds, dks, dvs, c, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Strides are in elements; stats is fp32 scratch of 3 * b * h * tq floats.
-// Launches both passes on `stream`; returns cudaGetLastError() after them.
-extern "C" int flash_attention_lane_bwd(const void* q, const void* k, const void* v,
-                                        const void* dout, void* dq, void* dk, void* dv,
-                                        void* stats, int b, int tq, int tk, int h, int qsb,
-                                        int qst, int qsh, int ksb, int kst, int ksh, int vsb,
-                                        int vst, int vsh, int dsb, int dst, int dsh, int dqsb,
-                                        int dqst, int dqsh, int dksb, int dkst, int dksh,
-                                        int dvsb, int dvst, int dvsh, float scale,
-                                        void* stream) {
+// Launches both passes on `stream`; returns cudaGetLastError() after them, or
+// cudaErrorInvalidValue for a head_dim the kernels are not instantiated for.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
+                                   const void* dout, void* dq, void* dk, void* dv, void* stats,
+                                   int b, int tq, int tk, int h, int d, int qsb, int qst, int qsh,
+                                   int ksb, int kst, int ksh, int vsb, int vst, int vsh, int dsb,
+                                   int dst, int dsh, int dqsb, int dqst, int dqsh, int dksb,
+                                   int dkst, int dksh, int dvsb, int dvst, int dvsh, float scale,
+                                   void* stream) {
   const float c = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh}, ds{dsb, dst, dsh};
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* dp = static_cast<const __nv_bfloat16*>(dout);
-  attn_bwd_dq_kernel<<<dim3((tq + kT - 1) / kT, h, b), kThreads, 0, s>>>(
-      qp, kp, vp, dp, static_cast<__nv_bfloat16*>(dq), static_cast<float*>(stats), tq, tk, h, qs,
-      ks, vs, ds, Strides{dqsb, dqst, dqsh}, c, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<<<dim3((tk + kT - 1) / kT, h, b), kThreads, 0, s>>>(
-      qp, kp, vp, dp, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      static_cast<const float*>(stats), tq, tk, h, qs, ks, vs, ds, Strides{dksb, dkst, dksh},
-      Strides{dvsb, dvst, dvsh}, c, scale);
-  return static_cast<int>(cudaGetLastError());
+  auto* dqp = static_cast<__nv_bfloat16*>(dq);
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  auto* sp = static_cast<float*>(stats);
+  const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh}, ds{dsb, dst, dsh};
+  const Strides dqs{dqsb, dqst, dqsh}, dks{dksb, dkst, dksh}, dvs{dvsb, dvst, dvsh};
+  switch (d) {
+    case 16: return launch<16>(qp, kp, vp, dp, dqp, dkp, dvp, sp, b, tq, tk, h, qs, ks, vs, ds, dqs, dks, dvs, c, scale, s);
+    case 32: return launch<32>(qp, kp, vp, dp, dqp, dkp, dvp, sp, b, tq, tk, h, qs, ks, vs, ds, dqs, dks, dvs, c, scale, s);
+    case 64: return launch<64>(qp, kp, vp, dp, dqp, dkp, dvp, sp, b, tq, tk, h, qs, ks, vs, ds, dqs, dks, dvs, c, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -7,8 +7,10 @@ backward: the attention of the models whose head_dim the lane kernel does not ta
 :func:`flash_attention_bh` is a ``torch.autograd.Function`` that saves q, k, v (the
 JAX rule saves their (B*H, T, D) transposes; the port reads strides and makes no
 copy) and recomputes the softmax in the backward. On CUDA tensors the forward
-launches ``csrc/flash_attention_bh.cu`` and the backward
-``csrc/flash_attention_bh_bwd.cu``; on CPU tensors both run their plain versions.
+and the backward launch the lane kernels' sources, ``csrc/flash_attention_lane.cu``
+and ``csrc/flash_attention_lane_bwd.cu``, which are templated on the head dim (one
+function, one layout), through the same helpers; the counts here are K4's own. On
+CPU tensors both run their plain versions.
 
 Forward contract (the TPU ``_fwd_kernel``): m is the row max of the unscaled
 s = q k^T (fp32), e = exp2((s - m) * scale * log2(e)), l = rowsum(e),
@@ -21,73 +23,34 @@ Backward contract (the TPU ``_bwd_kernel``), inv_l = 1 / l:
     dq = (ds_u @ k) * scale * inv_l,  dk = ds_u^T @ bf16(q * scale * inv_l)
 
 These are the lane kernel's (K1, K1b) roundings too: the two TPU kernels compute
-one function in two layouts, so the plain versions are shared with
-``ops/flash_attention_lane.py`` and written for any head_dim and head count.
+one function in two layouts, so the plain versions and the CUDA kernels are shared
+with ``ops/flash_attention_lane.py``, written for any head count.
 """
 
-import ctypes
+from .flash_attention_lane import (_LaneAttention, _check, _default_scale, _needs_grad,
+                                   _on_card, flash_attention_lane_bwd_plain,
+                                   flash_attention_lane_plain, launch_bwd, launch_fwd)
 
-import torch
-
-from . import _build
-from .flash_attention_lane import (_check_rows, _default_scale, _needs_grad,
-                                   _LaneAttention, flash_attention_lane_bwd_plain,
-                                   flash_attention_lane_plain)
-
-_SRC = "flash_attention_bh"
-_SRC_BWD = "flash_attention_bh_bwd"
 HEAD_DIMS = (16, 32, 64)  # the kernels' template instances
 
 flash_attention_bh_plain = flash_attention_lane_plain
 flash_attention_bh_bwd_plain = flash_attention_lane_bwd_plain
 
 
-def _check(q, k, v):
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash_attention_bh kernel takes bf16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be (B, T, H, D)")
-    b, _, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
+def _check_bh(q, k, v):
+    _on_card(q)
+    _check("flash_attention_bh", q, k, v)
+    if q.shape[3] not in HEAD_DIMS:
         raise NotImplementedError(f"flash_attention_bh kernel is built for head_dim in "
-                                  f"{HEAD_DIMS}, got {d}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_rows(name, x)
-
-
-def _on_card(q):
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+                                  f"{HEAD_DIMS}, got {q.shape[3]}")
 
 
 def _forward(q, k, v, scale):
     """Forward on q's device: the plain version on the CPU, the kernel on the card."""
     if q.device.type == "cpu":
         return flash_attention_bh_plain(q, k, v, scale)
-    _on_card(q)
-    _check(q, k, v)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
-        return o
-    fn = _build.function(_SRC, "flash_attention_bh_fwd",
-             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk, h, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                 float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bh kernel launch failed: CUDA error {err}")
-    flash_attention_bh.launches += 1
-    return o
+    _check_bh(q, k, v)
+    return launch_fwd(flash_attention_bh, q, k, v, scale)
 
 
 def flash_attention_bh_bwd(q, k, v, do, scale=None):
@@ -97,34 +60,8 @@ def flash_attention_bh_bwd(q, k, v, do, scale=None):
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_bh_bwd_plain(q, k, v, do, scale)
-    _on_card(q)
-    _check(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q")
-    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
-        do = do.contiguous()  # the cotangent comes in whatever strides autograd made
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
-    if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    # per (batch, head, query row): the row max, 1/rowsum(e) and delta
-    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=q.device)
-    fn = _build.function(_SRC_BWD, "flash_attention_bh_bwd",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 26 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, tq, tk, h, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-                 *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bh backward kernel launch failed: "
-                           f"CUDA error {err}")
-    flash_attention_bh_bwd.launches += 1
-    return dq, dk, dv
+    _check_bh(q, k, v)
+    return launch_bwd(flash_attention_bh_bwd, q, k, v, do, scale)
 
 
 def flash_attention_bh(q, k, v, scale=None):

@@ -6,7 +6,9 @@ saves q, k, v (as the JAX rule does) and recomputes the softmax in the backward.
 On CUDA tensors the forward launches the hand-written Hopper kernel in
 ``csrc/flash_attention_lane.cu`` and the backward the one in
 ``csrc/flash_attention_lane_bwd.cu``; on CPU tensors both run their plain
-PyTorch versions. Forward contract:
+PyTorch versions. The kernels are templated on the head dim: the whole-K
+attention of ``ops/flash_attention_bh.py`` (K4, D = 16 or 32) computes the same
+function and launches them through the same helpers here. Forward contract:
 
     e = exp2((s - rowmax(s)) * scale * log2(e)),  s = q k^T in fp32
     out = (bf16(e) @ v, fp32 accumulation) / rowsum(e)
@@ -82,22 +84,19 @@ def _check_rows(name, x):
         raise ValueError(f"{name} strides overflow int32")
 
 
-def _check(q, k, v):
+def _check(name, q, k, v):
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash_attention_lane kernel takes bf16, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"{name} kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, T, H, D)")
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if not supported(h, d):
-        raise ValueError(f"kernel needs head_dim 64 and even H, got H={h} D={d}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_rows(name, x)
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        _check_rows(arg, x)
 
 
 def _on_card(q):
@@ -105,28 +104,72 @@ def _on_card(q):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _forward(q, k, v, scale):
-    """Forward on q's device: the plain version on the CPU, the kernel on the card."""
-    if q.device.type == "cpu":
-        return flash_attention_lane_plain(q, k, v, scale)
-    _on_card(q)
-    _check(q, k, v)
+def launch_fwd(counter, q, k, v, scale):
+    """Run ``csrc/flash_attention_lane.cu`` on q's card (head_dim 16, 32 or 64, the
+    caller has checked it) and add one to ``counter.launches``; returns out."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    fn = _build.function(_SRC, "flash_attention_lane_fwd",
-             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_float, ctypes.c_void_p])
+    fn = _build.function(_SRC, "flash_attention_fwd",
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk, h,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk, h, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_lane kernel launch failed: CUDA error {err}")
-    flash_attention_lane.launches += 1
+        raise RuntimeError(f"{counter.__name__} kernel launch failed: CUDA error {err}")
+    counter.launches += 1
     return o
+
+
+def launch_bwd(counter, q, k, v, do, scale):
+    """Run both passes of ``csrc/flash_attention_lane_bwd.cu`` on q's card and add
+    one to ``counter.launches``; returns (dq, dk, dv)."""
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q")
+    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
+        do = do.contiguous()  # the cotangent comes in whatever strides autograd made
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # per (batch, head, query row): the row max, 1/rowsum(e) and delta
+    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=q.device)
+    fn = _build.function(_SRC_BWD, "flash_attention_bwd",
+             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 26 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, tq, tk, h, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                 *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{counter.__name__} backward kernel launch failed: "
+                           f"CUDA error {err}")
+    counter.launches += 1
+    return dq, dk, dv
+
+
+def _check_lane(q, k, v):
+    _on_card(q)
+    _check("flash_attention_lane", q, k, v)
+    if not supported(q.shape[2], q.shape[3]):
+        raise ValueError(f"kernel needs head_dim 64 and even H, got H={q.shape[2]} "
+                         f"D={q.shape[3]}")
+
+
+def _forward(q, k, v, scale):
+    """Forward on q's device: the plain version on the CPU, the kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_lane_plain(q, k, v, scale)
+    _check_lane(q, k, v)
+    return launch_fwd(flash_attention_lane, q, k, v, scale)
 
 
 def flash_attention_lane_bwd(q, k, v, do, scale=None):
@@ -135,34 +178,8 @@ def flash_attention_lane_bwd(q, k, v, do, scale=None):
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_lane_bwd_plain(q, k, v, do, scale)
-    _on_card(q)
-    _check(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q")
-    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
-        do = do.contiguous()  # the cotangent comes in whatever strides autograd made
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
-    if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    # per (batch, head, query row): the row max, 1/rowsum(e) and delta
-    stats = torch.empty((3, b, h, tq), dtype=torch.float32, device=q.device)
-    fn = _build.function(_SRC_BWD, "flash_attention_lane_bwd",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 25 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, tq, tk, h,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-                 *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_lane backward kernel launch failed: "
-                           f"CUDA error {err}")
-    flash_attention_lane_bwd.launches += 1
-    return dq, dk, dv
+    _check_lane(q, k, v)
+    return launch_bwd(flash_attention_lane_bwd, q, k, v, do, scale)
 
 
 class _LaneAttention(torch.autograd.Function):

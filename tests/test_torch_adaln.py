@@ -135,7 +135,7 @@ def jax_mask(jmodel, params, rng_mask, batch, length, ratio):
 
 
 def test_dit_fused_adaln_and_dots_match_jax(monkeypatch):
-    """The H100 overlays' model options, fused_adaln=True with remat 'dots', against
+    """The fused adaLN of the H100 overlays, fused_adaln=True with remat 'dots', against
     the JAX DiT with the same options: the edm_loss at mask 0.75 (the DiT forward
     through the fused adaLN sites) and every parameter gradient, fp32, Micro widths,
     JAX weights carried across. JAX's LayerNorm runs the Pallas kernel in interpret

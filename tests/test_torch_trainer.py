@@ -150,12 +150,12 @@ def _targets(node):
 
 def test_recipes_and_overlays_load():
     """The four recipes load to the JAX loader's dicts; the four H100 overlays carry
-    the per-rank batch 256, the reference's microbatches, fused adaLN, remat 'dots'
-    at 256px and 'full' with the 'gather' dispatch at 512px (the faster policy
-    there, the overlays' comments give the card's numbers), and the card; every
-    _target_ resolves to a port callable; others raise."""
+    the per-rank batch 256, the reference's microbatches, fused adaLN, remat 'full'
+    (the overlays' one rule; their comments give the card's numbers), the 'gather'
+    dispatch at 512px, and the card; every _target_ resolves to a port callable;
+    others raise."""
     microbatches = dict(zip(STAGES, (256, 64, 32, 16)))
-    policies = dict(zip(STAGES, ("dots", "dots", "full", "full")))
+    policies = dict(zip(STAGES, ("full", "full", "full", "full")))
     dispatch = dict(zip(STAGES, ("onehot", "onehot", "gather", "gather")))
     for stage in STAGES:
         cfg = tconfig.load_config(os.path.join(ROOT, "configs"), stage)

@@ -17,7 +17,10 @@ Phases, each of which fails the run on a failed check:
                trainer path runs (XL stage 1, the Tiny round trip) and one 512px
                shape (no PyTorch call computes it: no library yardstick).
      The expert-major MoE kernels (K3) and the whole-K attention (K4), forward and
-               backward, at the shapes phases 7-9 record (SDPA as K4's yardstick).
+               backward, at the shapes phases 7-9 record (SDPA as K4's yardstick);
+               the tiled attention with the saved logsumexp (K5), forward (out and
+               lse) and backward, at the shapes [stage2] records under 'flash_bthd',
+               two 512px ones and the caption block's (SDPA as the yardstick).
   3. slice   - MicroDiT-XL at full width (256px, seeded init with the zero-init
                layers perturbed): one CFG forward through the kernels against the
                same forward through the plain versions, then generate() of 4
@@ -31,11 +34,20 @@ Phases, each of which fails the run on a failed check:
                (train.cli.main with the H100 overlay: fused adaLN, remat 'full')
                on a seeded synthetic MDS latents dataset: 6 steps at batch 256 and
                one eval, the launch counts of all five kernels checked every step;
-               then one microbatch's gradient under 'dots' against 'full', and a
-               warm-up and 3 bare make_train_step calls on the same state under each
-               policy (median times, peaks, profiles; the trainer-vs-bare ratio).
+               then a warm-up and 3 bare make_train_step calls on the same state
+               under the overlay's policy (median time, peak, profile; the
+               trainer-vs-bare ratio).
   6. resume  - MicroDiT-Tiny through the entry point: 4 steps straight against 2
                steps, a checkpoint and an autoresume to 4; the parameters agree.
+     stage2  - MicroDiT-XL stage 2 (256px, mask 0, mb 64, K = 4) through
+               train.cli.main with the H100 overlay on the [trainer] set, as the
+               overlay stands ('auto': K1, K2, K6) and with
+               model.attention_impl=flash_bthd (K5 at every block attention site):
+               4 steps and one eval each with the launch counts checked; under
+               'auto' one microbatch's gradient under every remat policy against
+               'full' and bare steps under each ('full', 'dots', 'attn_moe',
+               'dots_attn_moe'); under 'flash_bthd' one microbatch's loss and whole
+               gradient through the kernels against the plain path, and bare steps.
   7. stage3  - MicroDiT-XL stage 3 (512px, mask 0.75, mb 32, K = 8, 'gather' with
                the expert-major kernel K3, fp32 EMA from step 2) through
                train.cli.main with the H100 overlay on a seeded synthetic 512px MDS
@@ -138,6 +150,19 @@ STAGE_SAMPLES, STAGE_EVAL_SAMPLES = 1024, 256  # 512px synthetic set (32 KB late
 SAMPLE512_PROMPTS = 2  # [sample512]: x2 for CFG, batch 4 through the DiT
 CHAIN_BATCH = 64      # [chain] per-rank batch: K = 1 / 2 / 4 at stages 2 / 3 / 4
 CHAIN_STEPS = 2       # steps per chain stage
+FA_REPLACES = "micro_diffusion_tpu/ops/flash_attention.py:76"       # _fwd_kernel (K5)
+FA_BWD_REPLACES = "micro_diffusion_tpu/ops/flash_attention.py:140"  # _dq_kernel, and
+                                                                    # _dkv_kernel :172
+# (B, Tq, Tk, H, D) at which K5 is checked beside the stage-2 path's shapes: XL 512px
+# at mb 8, where the JAX kernels tile the sequences (4 chunks of 256), and the caption
+# block's self-attention (which stays 'auto' in the DiT, so K1 runs it there)
+FA_EXTRA_SHAPES = [(8, 1024, 1024, 16, 64), (8, 1024, 77, 16, 64), (64, 77, 77, 16, 64)]
+LSE_TOL = 1e-3  # max |kernel - plain| of the fp32 row logsumexp: the same exponentials
+                # summed in another order (online across key tiles) around values ~5
+STAGE2_STEPS = 4  # fit steps of each [stage2] run (one epoch of the 1024-sample set)
+REMAT_POLICIES = ("full", "dots", "attn_moe", "dots_attn_moe")
+RECIPE_BATCHES = (250000, 30000, 50000, 55000)  # batches of stages 1-4 (configs/res_*.yaml:
+                                                # 250k, then to 280k, 50k, 55k more)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OVERLAY = os.path.join(ROOT, "micro_diffusion_tpu_torch", "configs", "h100_1gpu")
 PROMPTS_FILE = os.path.join(ROOT, "configs", "eval_prompts.yaml")  # the recipe's, cwd-free
@@ -250,6 +275,18 @@ def bh_bwd_flops_bytes(b, tq, tk, h, d):
     """K4 backward: 5 products; q, do read and dq written, k, v read and dk, dv
     written, bf16."""
     return 5 * 2 * b * h * tq * tk * d, 2 * d * h * b * (3 * tq + 4 * tk)
+
+
+def fa_flops_bytes(b, tq, tk, h, d):
+    """K5 forward: 2 products of 2*B*H*Tq*Tk*D; q, k, v read, out and the fp32
+    logsumexp written."""
+    return 4 * b * h * tq * tk * d, 2 * d * h * b * (2 * tq + 2 * tk) + 4 * b * h * tq
+
+
+def fa_bwd_flops_bytes(b, tq, tk, h, d):
+    """K5 backward: the function's 5 products; q, do, out and lse read and dq
+    written (Tq rows), k, v read and dk, dv written (Tk rows), bf16."""
+    return 5 * 2 * b * h * tq * tk * d, 2 * d * h * b * (4 * tq + 4 * tk) + 4 * b * h * tq
 
 
 def rel_err(got, ref):
@@ -487,23 +524,73 @@ def check_bh_bwd(shape, gen):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
 
 
+def check_fa(shape, gen):
+    """K5 forward (out and the row logsumexp) and backward against their plain
+    versions at one (B, Tq, Tk, H, D) shape, the backward on the kernel's own out
+    and lse; SDPA forward and backward on the same inputs as the yardsticks.
+    Returns the forward and the backward row."""
+    import torch
+    import torch.nn.functional as F
+    fa = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention")
+
+    b, tq, tk, h, d = shape
+    scale = d**-0.5
+    q, k, v = attn_case(tq, tk, h, gen, b, d)
+    do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    out, lse = fa._forward(q, k, v, scale)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v)
+    err, rel = attn_errs(out, ref, f"flash_attention {shape}")
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not (math.isfinite(lse_err) and lse_err <= LSE_TOL):
+        raise AssertionError(f"flash_attention {shape}: lse max abs err {lse_err} > {LSE_TOL}")
+    ref_g = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    errs = [rel_err(g, r) for g, r in zip(got, ref_g)]
+    if not all(math.isfinite(e) and e <= BWD_TOL for e in errs):
+        raise AssertionError(f"flash_attention backward {shape}: rel errs (dq, dk, dv) "
+                             f"{errs} > {BWD_TOL}")
+    bwd_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref_g))
+    del got, ref, ref_lse, ref_g
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd = dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=err, max_rel_err=rel,
+               lse_max_abs_err=lse_err,
+               ms=time_ms(lambda: fa._forward(q, k, v, scale), iters=10),
+               plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=3, warmup=1),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10))
+    fwd["bound_ms"], fwd["bound_by"] = bound(*fa_flops_bytes(b, tq, tk, h, d))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+    dot = do.transpose(1, 2)
+    bwd = dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=bwd_err, max_rel_err=max(errs),
+               ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do), iters=5),
+               plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do),
+                                iters=2, warmup=1),
+               library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), dot,
+                                                              retain_graph=True), iters=5))
+    bwd["bound_ms"], bwd["bound_by"] = bound(*fa_bwd_flops_bytes(b, tq, tk, h, d))
+    return fwd, bwd
+
+
 # ------------------------------------------------------------------ slice
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel call sites (K1, K4, K2, K3, K6) to the kernels' plain
-    versions, forward and backward (the plain backwards run in the autograd
+    """Route the model's kernel call sites (K1, K4, K5, K2, K3, K6) to the kernels'
+    plain versions, forward and backward (the plain backwards run in the autograd
     Functions)."""
     from micro_diffusion_tpu_torch.models import layers
     from micro_diffusion_tpu_torch.ops import attention
 
     fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
     bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
+    fa = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention")
     mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
     ad = importlib.import_module("micro_diffusion_tpu_torch.ops.adaln")
     sites = [(attention, "flash_attention_lane", fal.flash_attention_lane_reference),
              (attention, "flash_attention_bh", bh.flash_attention_bh_reference),
+             (attention, "flash_attention", fa.flash_attention_reference),
              (layers, "moe_ffn", mf.moe_ffn_reference),
              (layers, "moe_ffn_expert_major", mf.moe_ffn_expert_major_reference),
              (layers, "layernorm_modulate", ad.layernorm_modulate_reference)]
@@ -517,26 +604,32 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-def attn_route(h, d, tq):
-    """The card's 'auto' attention dispatch (ops/attention.py): K1 where the lane
-    kernel applies (head_dim 64, even H), else K4 at Tq >= 512, else the plain
-    path (no kernel)."""
-    if d == 64 and h % 2 == 0:
-        return "attention"
-    return "bh" if tq >= 512 else None
+def attn_route(impl, h, d, tq):
+    """The card's attention dispatch (ops/attention.py) for ``impl``: under 'auto'
+    K1 where the lane kernel applies (head_dim 64, even H), else K4 at Tq >= 512,
+    else the plain path (no kernel); 'flash_bthd' K5 everywhere."""
+    lane_ok = d == 64 and h % 2 == 0
+    if impl == "auto":
+        impl = "flash_lane" if lane_ok else ("flash" if tq >= 512 else "xla")
+    elif impl == "pallas":
+        impl = "flash"
+    if impl == "flash":
+        impl = "flash_lane" if lane_ok else "flash_bh"
+    return {"flash_lane": "attention", "flash_bh": "bh", "flash_bthd": "fa"}.get(impl)
 
 
-BWD_OF = {"attention": "attention_bwd", "bh": "bh_bwd", "moe": "moe_bwd", "em": "em_bwd"}
+BWD_OF = {"attention": "attention_bwd", "bh": "bh_bwd", "fa": "fa_bwd", "moe": "moe_bwd",
+          "em": "em_bwd"}
 
 
 class PathRecord:
     """The kernel calls of the forwards run under ``record_path``, by kernel and
-    shape (K1 (B, Tq, Tk, H), K4 (B, Tq, Tk, H, D), K2 (n, e, k, d, f), K3
+    shape (K1 (B, Tq, Tk, H), K4 and K5 (B, Tq, Tk, H, D), K2 (n, e, k, d, f), K3
     (e, m, d, f), K6 (B, T, D)), and those of them outside the remat blocks (the
     caption block's attention, the final layer's adaLN)."""
 
     def __init__(self):
-        kinds = ("attention", "bh", "moe", "em", "adaln")
+        kinds = ("attention", "bh", "fa", "moe", "em", "adaln")
         self.shapes = {k: collections.Counter() for k in kinds}
         self.outside = {k: collections.Counter() for k in kinds}
 
@@ -552,10 +645,12 @@ class PathRecord:
             shape: microbatches * (n if backward else 2 * n - self.outside[kind][shape])
             for shape, n in self.shapes[kind].items()})
 
-    def step_launches(self, microbatches):
+    def step_launches(self, microbatches, kept=()):
+        """Launches of a train step; the forward kernels of the kinds in ``kept``
+        (whose outputs the remat policy keeps) run once, not again in the backward."""
         want = launch_dict()
         for kind in self.shapes:
-            want[kind] = sum(self.step_shapes(kind, microbatches).values())
+            want[kind] = sum(self.step_shapes(kind, microbatches, kind in kept).values())
             if kind in BWD_OF:
                 want[BWD_OF[kind]] = sum(self.step_shapes(kind, microbatches, True).values())
         return want
@@ -583,7 +678,7 @@ def record_path(dit):
     def on_attn(mod, tq, tk, b):
         h = mod.num_heads
         d = mod.hidden // h
-        kind = attn_route(h, d, tq)
+        kind = attn_route(mod.attn_impl, h, d, tq)
         add(kind, (b, tq, tk, h) if kind == "attention" else (b, tq, tk, h, d), mod)
 
     def on_self(mod, args):
@@ -738,11 +833,13 @@ def profile_forward(model, x, sigma, y, top=12):
 def kernel_counts():
     fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
     bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
+    fa = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention")
     mf = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
     ad = importlib.import_module("micro_diffusion_tpu_torch.ops.adaln")
     return {"attention": fal.flash_attention_lane, "attention_bwd": fal.flash_attention_lane_bwd,
             "moe": mf.moe_ffn, "moe_bwd": mf.moe_ffn_bwd, "adaln": ad.layernorm_modulate,
             "bh": bh.flash_attention_bh, "bh_bwd": bh.flash_attention_bh_bwd,
+            "fa": fa.flash_attention, "fa_bwd": fa.flash_attention_bwd,
             "em": mf.moe_ffn_expert_major, "em_bwd": mf.moe_ffn_expert_major_bwd}
 
 
@@ -1006,37 +1103,46 @@ def bare_steps(trainer, batch, n):
     return times
 
 
-def remat_grads_agree(model, batch, gen):
-    """One microbatch's loss and whole gradient under remat 'dots' and 'full' on the
-    card, with the same draws: the selective context must rebuild what the kernels'
-    autograd Functions saved, so the two agree (the same arithmetic in the same
-    order; 1e-6 relative L2 leaves room for a GEMM algorithm that sums otherwise)."""
+def remat_grads_agree(model, batch, gen, label):
+    """One microbatch's loss and whole gradient under every remat policy against
+    'full' on the card, with the same draws: the selective contexts must rebuild
+    what the kernels' autograd Functions saved, and the kept kernel outputs
+    ('attn_moe') must be the recomputed ones, so all agree (the same arithmetic in
+    the same order; 1e-6 relative L2 leaves room for a GEMM algorithm that sums
+    otherwise). Returns {policy: relative L2}."""
     import torch
     from micro_diffusion_tpu_torch.ops.masking import make_token_mask
 
-    b = batch["image_latents"].shape[0]
+    b, _, res, _ = batch["image_latents"].shape
     draws = dict(rnd_normal=torch.randn(b, 1, 1, 1, generator=gen, device="cuda"),
-                 noise=torch.randn(b, 4, 32, 32, generator=gen, device="cuda"),
-                 token_mask=make_token_mask(gen, b, (32 // model.dit.patch_size) ** 2,
+                 noise=torch.randn(b, 4, res, res, generator=gen, device="cuda"),
+                 token_mask=make_token_mask(gen, b, (res // model.dit.patch_size) ** 2,
                                             model.train_mask_ratio))
     params = [p for p in model.parameters() if p.requires_grad]
-    policy, out = model.dit.remat_policy, {}
-    for name in ("dots", "full"):
+    policy = model.dit.remat_policy
+
+    def loss_and_grads(name):
         model.dit.remat_policy = name
         loss, _, _ = model(batch, **draws)
-        out[name] = (loss.detach(), torch.autograd.grad(loss, params))
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_f, grads_f = loss_and_grads("full")
+    ref = sum(g.float().square().sum() for g in grads_f).sqrt()
+    rels = {}
+    for name in REMAT_POLICIES[1:]:
+        loss, grads = loss_and_grads(name)
+        equal = sum(bool(torch.equal(a, g)) for a, g in zip(grads, grads_f))
+        diff2 = sum((a.float() - g.float()).square().sum() for a, g in zip(grads, grads_f))
+        rels[name] = (diff2.sqrt() / ref).item()
+        log(f"{label} remat '{name}' vs 'full', one microbatch of {b}: loss "
+            f"{loss.item():.6f} vs {loss_f.item():.6f}; {equal} of {len(params)} gradients "
+            f"bitwise equal, whole gradient relative L2 {rels[name]:.3e} (tol 1e-6)")
+        if not (torch.equal(loss, loss_f) and rels[name] <= 1e-6):
+            raise AssertionError(f"remat {name} vs full: loss {loss.item()} vs "
+                                 f"{loss_f.item()}, gradient rel L2 {rels[name]}")
+        del grads
     model.dit.remat_policy = policy
-    (loss_d, grads_d), (loss_f, grads_f) = out["dots"], out["full"]
-    equal = sum(bool(torch.equal(a, b)) for a, b in zip(grads_d, grads_f))
-    diff2 = sum((a.float() - b.float()).square().sum() for a, b in zip(grads_d, grads_f))
-    rel = (diff2.sqrt() / sum(b.float().square().sum() for b in grads_f).sqrt()).item()
-    log(f"[trainer] remat 'dots' vs 'full', one microbatch of {b}: loss {loss_d.item():.6f} "
-        f"vs {loss_f.item():.6f}; {equal} of {len(params)} gradients bitwise equal, whole "
-        f"gradient relative L2 {rel:.3e} (tol 1e-6)")
-    if not (torch.equal(loss_d, loss_f) and rel <= 1e-6):
-        raise AssertionError(f"remat dots vs full: loss {loss_d.item()} vs {loss_f.item()}, "
-                             f"gradient rel L2 {rel}")
-    return rel
+    return rels
 
 
 def run_trainer(tmp):
@@ -1116,17 +1222,15 @@ def run_trainer(tmp):
     if sum(adaln_step.values()) != want["adaln"]:
         raise AssertionError(f"K6 shapes per step {adaln_step} do not sum to 137")
 
-    remat_rel = remat_grads_agree(trainer.model, batch, gen)
-
     # bare make_train_step on the same model, state and configuration, resident
-    # batch, under both policies: the overlay's sets the trainer / bare ratio
-    policies = {p: bare_policy(trainer, batch, p, "[trainer]") for p in ("dots", "full")}
-    bare_ips = policies[dit.remat_policy]["img_per_s"]
+    # batch, under the overlay's policy: the trainer / bare ratio (the remat
+    # policies are compared at stage 2, [stage2])
+    bare = bare_policy(trainer, batch, dit.remat_policy, "[trainer]", rec)
     log(f"[trainer] trainer / bare (remat '{dit.remat_policy}') = "
-        f"{trainer_ips / bare_ips:.3f}")
+        f"{trainer_ips / bare['img_per_s']:.3f}")
     return dict(launches=want, adaln_step=adaln_step, trainer_ips=trainer_ips,
-                remat_rel=remat_rel, bare_ips=bare_ips, ratio=trainer_ips / bare_ips,
-                waits=waits, fit_peak=fit_peak, policies=policies, policy=dit.remat_policy)
+                bare=bare, bare_ips=bare["img_per_s"], ratio=trainer_ips / bare["img_per_s"],
+                waits=waits, fit_peak=fit_peak, policy=dit.remat_policy)
 
 
 def run_resume(tmp):
@@ -1245,10 +1349,10 @@ def steady_rate(ips, warm=2):
     return len(rates) / sum(1 / r for r in rates)
 
 
-def microbatching(trainer):
-    """(microbatch size, microbatches per step) of a trainer's step, as
-    make_train_step splits the batch."""
-    batch = trainer.global_batch_size
+def microbatching(trainer, batch=None):
+    """(microbatch size, microbatches per step) of a trainer's step (or of a bare
+    step on ``batch`` samples), as make_train_step splits the batch."""
+    batch = batch or trainer.global_batch_size
     mb = min(trainer.microbatch_size or batch, batch)
     return mb, batch // mb
 
@@ -1299,22 +1403,33 @@ def gather_determinism(moe, gen, n, t):
         raise AssertionError(f"'gather' MoE layer not bitwise repeatable: {equal}")
 
 
-def bare_policy(trainer, batch, policy, label):
+def bare_policy(trainer, batch, policy, label, rec):
     """A warm-up and ``BARE_TIMED`` bare train steps under remat ``policy``, their
-    median, its peak memory, then one profiled step."""
+    median, its peak memory, then one profiled step. The timed steps' launches
+    must be those of ``rec`` (one microbatch's forward): under the 'attn_moe'
+    policies the attention kernels' kept outputs are not recomputed."""
     import torch
 
     dit = trainer.model.dit
     saved, dit.remat_policy = dit.remat_policy, policy
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = bare_steps(trainer, batch, 1 + BARE_TIMED)[1:]
+    bare_steps(trainer, batch, 1)
+    reset_counts()
+    times = bare_steps(trainer, batch, BARE_TIMED)
+    got = read_counts()
     peak = torch.cuda.max_memory_allocated()
     b = batch["image_latents"].shape[0]
+    kept = ("attention", "bh", "fa") if policy.endswith("attn_moe") else ()
+    per_step = rec.step_launches(microbatching(trainer, b)[1], kept)
+    want = {k: BARE_TIMED * n for k, n in per_step.items()}
+    if got != want:
+        raise AssertionError(f"{label} bare steps under '{policy}': launches {got} != {want}")
     ms = statistics.median(times)
     log(f"{label} bare steps, remat '{policy}', batch {b}: "
         f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
-        f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB")
+        f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB; launches per step as "
+        f"expected: {per_step}")
     profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
                  label=f"{label} step, remat '{policy}'")
     dit.remat_policy = saved
@@ -1378,11 +1493,86 @@ def run_stage(tmp, config, label, latent=64):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
              for key, v in train_batch(gen, BARE_MICROBATCHES * mb, latent).items()}
-    policies = {p: bare_policy(trainer, batch, p, label) for p in ("dots", "full")}
+    policies = {p: bare_policy(trainer, batch, p, label, train_rec) for p in ("dots", "full")}
     return trainer, dict(train_rec=train_rec, want=want, want_eval=want_eval, k=k, mb=mb,
                          policy=dit.remat_policy,
                          trainer_ips=trainer_ips, fit_peak=fit_peak, losses=losses,
                          policies=policies, wall=wall)
+
+
+def run_stage2(tmp):
+    """XL stage 2 (256px, mask 0, mb 64, K = 4) through the entry point on the
+    [trainer] phase's 256px set, twice: as the H100 overlay stands ('auto': K1, K2,
+    K6) and with model.attention_impl=flash_bthd (K5 at every attention site, K1
+    never). Each: 4 steps and one eval with the launch counts of every kernel
+    checked, bare steps under remat 'full'; under 'auto' also under every other
+    remat policy, with one microbatch's gradient under each against 'full'; under
+    'flash_bthd' one microbatch's loss and gradient through the kernels against the
+    plain versions."""
+    import torch
+    from micro_diffusion_tpu_torch.train import cli
+
+    train_dir, eval_dir = os.path.join(tmp, "train"), os.path.join(tmp, "eval")
+    runs = {}
+    for impl in ("auto", "flash_bthd"):
+        label = f"[stage2 {impl}]"
+        metrics_path = os.path.join(tmp, f"stage2_{impl}.jsonl")
+        probe = TrainerProbe()
+        reset_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = cli.main(stage_argv("res_256_finetune", train_dir, eval_dir, metrics_path,
+                                      STAGE2_STEPS, f"model.attention_impl={impl}"),
+                           callbacks=[probe])
+        wall = time.perf_counter() - t0
+        fit_peak = torch.cuda.max_memory_allocated()
+        dit = trainer.model.dit
+        mb, k = microbatching(trainer)
+        log(f"{label} cli.main res_256_finetune: {STAGE2_STEPS} steps of "
+            f"{trainer.global_batch_size} (mb {mb}, K = {k}) + eval in {wall:.1f} s (model "
+            f"build included); remat '{dit.remat_policy}', mask "
+            f"{trainer.model.train_mask_ratio}; peak {fit_peak / 2**30:.2f} GiB (allocated "
+            f"before the fit {base / 2**30:.2f} GiB)")
+        losses, norms, ips, evals = fit_metrics(metrics_path, STAGE2_STEPS, label)
+        train_rec, eval_rec = path_of(trainer, 32)
+        want = train_rec.step_launches(k)
+        want_eval = eval_rec.forward_launches(-(-EVAL_SAMPLES // trainer.eval_loader.batch_size))
+        check_launches(label, probe, want, want_eval, STAGE2_STEPS)
+        # under 'flash_bthd' K1 runs only in the caption block, outside the DiT blocks:
+        # its self-attention is 'auto' in both packages (JAX layers.py:759)
+        attn = (want["attention"], want["attention_bwd"], want["fa"], want["fa_bwd"])
+        k1_in_blocks = train_rec.shapes["attention"] - train_rec.outside["attention"]
+        ok = (attn[2:] == (0, 0) and attn[0] > 0 if impl == "auto" else
+              attn[2] > 0 and attn[3] > 0 and not +k1_in_blocks and attn[:2] == (k, k))
+        if not ok:
+            raise AssertionError(f"{label}: K1/K1b/K5/K5b launches per step {attn}, K1 in "
+                                 f"the blocks {dict(k1_in_blocks)}")
+        n_params = len(trainer.state.params)
+        log(f"{label} step 1 changed {probe.changed} of {n_params} parameter tensors; "
+            f"steps 1-{STAGE2_STEPS - 1} changed {probe.changed_by_end}")
+        if not (probe.changed and probe.changed_by_end >= 0.9 * n_params):
+            raise AssertionError(f"{label}: step 1 changed {probe.changed}, steps 1-"
+                                 f"{STAGE2_STEPS - 1} {probe.changed_by_end} of {n_params}")
+        run = dict(train_rec=train_rec, want=want, want_eval=want_eval, k=k, mb=mb,
+                   trainer_ips=steady_rate(ips), fit_peak=fit_peak, wall=wall,
+                   policy=dit.remat_policy)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
+                 for key, v in train_batch(gen, BARE_MICROBATCHES * mb).items()}
+        mb_batch = {key: v[:mb] for key, v in batch.items()}
+        if impl == "flash_bthd":
+            run["cmp"] = compare_train_grads(trainer.model, mb_batch, gen, label=label)
+            policies = ("full",)
+        else:
+            run["remat_rel"] = remat_grads_agree(trainer.model, mb_batch, gen, label)
+            policies = REMAT_POLICIES
+        run["policies"] = {p: bare_policy(trainer, batch, p, label, train_rec)
+                           for p in policies}
+        runs[impl] = run
+        del trainer, dit, batch, mb_batch
+        free_memory()
+    return runs
 
 
 def run_sample512(model, prompts=SAMPLE512_PROMPTS, steps=STEPS):
@@ -1616,6 +1806,11 @@ def main():
         log(f"[phase] resume {time.perf_counter() - t_phase:.1f} s")
         free_memory()
 
+        # ---- XL stage 2 under 'auto' and 'flash_bthd' (K5), the remat policies
+        t_phase = time.perf_counter()
+        s2 = run_stage2(tmp)
+        log(f"[phase] stage2 {time.perf_counter() - t_phase:.1f} s")
+
         # ---- 7. stage 3, with the 'gather' layer's determinism on the card
         t_phase = time.perf_counter()
         trainer, s3 = run_stage(tmp, "res_512_pretrain", "[stage3]")
@@ -1651,8 +1846,9 @@ def main():
     t_phase = time.perf_counter()
     have = {(r["B"], r["Tq"], r["Tk"], r["H"]) for r in attn_rows}
     fwd_512 = [s3["train_rec"], s4["train_rec"], sp["rec"]]
+    rec2a = s2["auto"]["train_rec"]
     for (b, tq, tk, h) in sorted(set(res["attn_shapes"]).union(
-            *(rec.shapes["attention"] for rec in fwd_512))):
+            rec2a.shapes["attention"], *(rec.shapes["attention"] for rec in fwd_512))):
         if (b, tq, tk, h) not in have:
             attn_rows.append(check_attention((tq, tk, h), gen, b))
             log(f"[kernels] attention {json.dumps(attn_rows[-1])}")
@@ -1662,7 +1858,7 @@ def main():
             moe_rows.append(check_moe((k, d, f), gen, n, e))
     have = {(r["B"], r["Tq"], r["Tk"], r["H"]) for r in attn_bwd_rows}
     for shape in sorted(set(tr["attn_shapes"]).union(
-            *(rec.shapes["attention"] for rec in fwd_512[:2]))):
+            rec2a.shapes["attention"], *(rec.shapes["attention"] for rec in fwd_512[:2]))):
         if shape not in have:
             attn_bwd_rows.append(check_attention_bwd(shape, gen))
             log(f"[kernels] attention_bwd {json.dumps(attn_bwd_rows[-1])}")
@@ -1677,7 +1873,7 @@ def main():
         if shape not in have:
             adaln_rows.append(check_adaln(shape, gen))
             log(f"[kernels] layernorm_modulate {json.dumps(adaln_rows[-1])}")
-    em_rows, em_bwd_rows, bh_rows, bh_bwd_rows = [], [], [], []
+    em_rows, em_bwd_rows, bh_rows, bh_bwd_rows, fa_rows, fa_bwd_rows = [], [], [], [], [], []
     train_recs = [s3["train_rec"], s4["train_rec"], ch["rec3"], ch["rec4"]]
     for shape in sorted(set().union(*(rec.shapes["em"] for rec in all_recs))):
         em_rows.append(check_em(shape, gen))
@@ -1690,6 +1886,13 @@ def main():
         log(f"[kernels] flash_attention_bh {json.dumps(bh_rows[-1])}")
         bh_bwd_rows.append(check_bh_bwd(shape, gen))
         log(f"[kernels] flash_attention_bh_bwd {json.dumps(bh_bwd_rows[-1])}")
+    rec2 = s2["flash_bthd"]["train_rec"]
+    for shape in sorted(set(rec2.shapes["fa"]).union(FA_EXTRA_SHAPES)):
+        fwd, bwd = check_fa(shape, gen)
+        fa_rows.append(fwd)
+        fa_bwd_rows.append(bwd)
+        log(f"[kernels] flash_attention {json.dumps(fwd)}")
+        log(f"[kernels] flash_attention_bwd {json.dumps(bwd)}")
     log(f"[phase] path shapes {time.perf_counter() - t_phase:.1f} s")
 
     attn_key = lambda r: (r["B"], r["Tq"], r["Tk"], r["H"])
@@ -1745,12 +1948,35 @@ def main():
                   BH_BWD_REPLACES, bh_bwd_rows, chain_rec.step_shapes("bh", chain_k, True),
                   ch["want4"]["bh_bwd"], bh_key, bh_bwd_flops_bytes, chain_per),
     ]
-    for entry in kernels[-4:-2]:
+    s2b = s2["flash_bthd"]
+    s2_per = (f"one XL stage-2 train step (batch {s2b['k'] * s2b['mb']}, mb {s2b['mb']}, "
+              f"K={s2b['k']}, remat '{s2b['policy']}', attention_impl 'flash_bthd'), summed "
+              "over its calls")
+    kernels += [
+        summarize("flash_attention", "micro_diffusion_tpu_torch/csrc/flash_attention_lane.cu",
+                  FA_REPLACES, fa_rows, rec2.step_shapes("fa", s2b["k"]), s2b["want"]["fa"],
+                  bh_key, fa_flops_bytes, s2_per),
+        summarize("flash_attention_bwd", "micro_diffusion_tpu_torch/csrc/flash_attention.cu",
+                  FA_BWD_REPLACES, fa_bwd_rows, rec2.step_shapes("fa", s2b["k"], True),
+                  s2b["want"]["fa_bwd"], bh_key, fa_bwd_flops_bytes, s2_per),
+    ]
+    kernels[-1]["also_replaces"] = "micro_diffusion_tpu/ops/flash_attention.py:172"
+    for entry in kernels[-6:-4]:
         entry["launches_stage3_step"] = s3["want"][
             "em" if entry["name"].endswith("major") else "em_bwd"]
-    kernels[-4]["launches_sample512"] = sp["launches"]["em"]
-    kernels[-2]["launches_chain_stage3_step"] = ch["want3"]["bh"]
-    kernels[-1]["launches_chain_stage3_step"] = ch["want3"]["bh_bwd"]
+    kernels[-6]["launches_sample512"] = sp["launches"]["em"]
+    kernels[-4]["launches_chain_stage3_step"] = ch["want3"]["bh"]
+    kernels[-3]["launches_chain_stage3_step"] = ch["want3"]["bh_bwd"]
+    # K1 and K1b over one XL stage-2 step under 'auto': the in-step yardstick of K5
+    s2a = s2["auto"]
+    s2a_per = s2_per.replace("'flash_bthd'", "'auto'")
+    for entry, rows, fb, bwd in ((kernels[0], attn_rows, attn_flops_bytes, False),
+                                 (kernels[2], attn_bwd_rows, attn_bwd_flops_bytes, True)):
+        shapes = rec2a.step_shapes("attention", s2a["k"], bwd)
+        sub = summarize(entry["name"], entry["source"], entry["replaces"], rows, shapes,
+                        sum(shapes.values()), attn_key, fb, s2a_per)
+        entry["stage2_step"] = {f: sub[f] for f in ("per", "launches", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms")}
     # K1, K1b and K6 over one XL stage-4 step, at the 512px shapes
     for entry, rows, kind, key, fb, bwd, peak in (
             (kernels[0], attn_rows, "attention", attn_key, attn_flops_bytes, False,
@@ -1770,12 +1996,9 @@ def main():
         f"{tr['img_per_s']:.2f} img/s, peak {tr['peak_bytes'] / 2**30:.2f} GiB, "
         f"remat {REMAT}")
     log(f"[trainer] stage 1 through the entry point (remat '{tn['policy']}'): "
-        f"{tn['trainer_ips']:.2f} img/s, bare step {tn['bare_ips']:.2f} img/s, ratio "
-        f"{tn['ratio']:.3f}; bare 'dots' {tn['policies']['dots']['ms']:.1f} ms (peak "
-        f"{tn['policies']['dots']['peak'] / 2**30:.2f} GiB), 'full' "
-        f"{tn['policies']['full']['ms']:.1f} ms (peak "
-        f"{tn['policies']['full']['peak'] / 2**30:.2f} GiB), "
-        f"gradient rel L2 dots vs full {tn['remat_rel']:.1e}; "
+        f"{tn['trainer_ips']:.2f} img/s, bare step {tn['bare_ips']:.2f} img/s "
+        f"({tn['bare']['ms']:.1f} ms, peak {tn['bare']['peak'] / 2**30:.2f} GiB), ratio "
+        f"{tn['ratio']:.3f}; "
         f"resume: {rs['equal']}/{rs['tensors']} bitwise, rel L2 {rs['rel']:.3e}")
     for label, st in (("[stage3]", s3), ("[stage4]", s4)):
         pol = st["policies"]
@@ -1785,6 +2008,20 @@ def main():
             f"img/s, peak {pol['dots']['peak'] / 2**30:.2f} GiB), 'full' "
             f"{pol['full']['ms']:.1f} ms ({pol['full']['img_per_s']:.2f} img/s, peak "
             f"{pol['full']['peak'] / 2**30:.2f} GiB)")
+    for impl, run in s2.items():
+        pol = ", ".join(f"'{p}' {r['ms']:.1f} ms ({r['img_per_s']:.2f} img/s, peak "
+                        f"{r['peak'] / 2**30:.2f} GiB)" for p, r in run["policies"].items())
+        log(f"[stage2 {impl}] through the entry point: {run['trainer_ips']:.2f} img/s (all "
+            f"images over all the time after step 2), fit peak "
+            f"{run['fit_peak'] / 2**30:.2f} GiB; bare steps {pol}")
+    log(f"[stage2 flash_bthd] one microbatch kernels vs plain: loss rel "
+        f"{s2['flash_bthd']['cmp']['rel_loss']:.3e}, gradient rel L2 "
+        f"{s2['flash_bthd']['cmp']['rel_grad']:.3e}")
+    rates = (tn["trainer_ips"], s2["auto"]["trainer_ips"], s3["trainer_ips"], s4["trainer_ips"])
+    weighted = sum(RECIPE_BATCHES) / sum(n / r for n, r in zip(RECIPE_BATCHES, rates))
+    log(f"[recipe] schedule-weighted rate through the entry point (the four overlays as "
+        f"they stand, stage 2 'auto'): {weighted:.2f} img/s from stage rates "
+        f"{', '.join(f'{r:.2f}' for r in rates)} over {RECIPE_BATCHES} batches")
     log(f"[stage4] one microbatch kernels vs plain: loss rel {s4['cmp']['rel_loss']:.3e}, "
         f"gradient rel L2 {s4['cmp']['rel_grad']:.3e}")
     log(f"[sample512] {sp['wall_ms']:.1f} ms for {SAMPLE512_PROMPTS} images, "

@@ -1,15 +1,23 @@
 // Non-causal multi-head attention forward, head_dim 16, 32 or 64, any head count,
 // for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels that compute one function:
+// Replaces three Pallas TPU forward kernels:
 //   micro_diffusion_tpu/ops/flash_attention_lane.py:_fwd_kernel (K1: head_dim 64,
 //     two heads packed side by side in 128 lanes; the packing was a TPU device
 //     and is not carried over), and
 //   micro_diffusion_tpu/ops/flash_attention_bh.py:_fwd_kernel (K4, 'flash_bh': the
 //     head_dims the lane kernel does not take, MicroDiT-Tiny at D = 32 and Micro
-//     at D = 16, at Tq >= 512 under 'auto').
-// One kernel templated on D serves both: ops/flash_attention_lane.py and
-// ops/flash_attention_bh.py call the one entry point and count their own launches.
+//     at D = 16, at Tq >= 512 under 'auto'), which compute one function, and
+//   micro_diffusion_tpu/ops/flash_attention.py:_fwd_kernel (K5, 'flash_bthd'), the
+//     same function that also saves the row logsumexp for its backward
+//     (flash_attention.cu): given an lse pointer, the kernel writes
+//     lse = rowmax(s) * scale + log(l) in fp32, (B, H, Tq) contiguous.
+// One kernel templated on D serves all three: ops/flash_attention_lane.py,
+// ops/flash_attention_bh.py and ops/flash_attention.py call the one entry point and
+// count their own launches. K5's contract normalises before the cast,
+// out = bf16(e / l) @ v; the online form below casts e against the running max and
+// divides at the end, so for K5 too the kernel is the contract up to one bf16
+// rounding of each probability.
 //
 // Contract (the TPU kernel's): s = q k^T in fp32 (unscaled),
 //   e = exp2((s - rowmax(s)) * scale * log2(e)), l = rowsum(e) in fp32,
@@ -41,82 +49,22 @@
 //
 // Grid: (ceil(Tq/64), H, B); block: 4 warps, each owning 16 query rows.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kBM = 64;  // query rows per block
-constexpr int kBN = 64;  // keys per tile
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0+64) of one (batch, head) slice into a 64 x (D+8) tile;
-// rows at or past `rows` are zero-filled and never read from device memory.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          int row0, int rows, int row_stride, int tid) {
-  constexpr int LD = D + 8, CH = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = tid; i < kBN * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int row = row0 + r;
-    const bool ok = row < rows;
-    cp_async16(dst + r * LD + c, ok ? base + (int64_t)row * row_stride + c : base, ok);
-  }
-}
+constexpr int kBM = kT;  // query rows per block
+constexpr int kBN = kT;  // keys per tile
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int tq,
                        int tk, int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb,
-                       int vst, int vsh, int osb, int ost, int osh, float c) {
+                       int vst, int vsh, int osb, int ost, int osh, float c,
+                       float* __restrict__ lse) {
   constexpr int LD = D + 8;   // shared row stride (bf16): 16-byte aligned rows
   constexpr int KS = D / 16;  // k16 steps over the head dim
   constexpr int NT = D / 8;   // n8 tiles of the output
@@ -240,6 +188,9 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / l;
     const int row = qt * kBM + warp * 16 + g + hf * 8;
+    if (lse != nullptr && t4 == 0 && row < tq)  // natural log of the scaled scores' sum
+      lse[((int64_t)b * gridDim.y + h) * tq + row] =
+          (m_run[hf] * c + log2f(l)) * 0.6931471805599453f;
     if (row < tq) {
       __nv_bfloat16* orow = o + (int64_t)b * osb + (int64_t)row * ost + (int64_t)h * osh;
 #pragma unroll
@@ -253,30 +204,33 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk, int h,
            int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh,
-           int osb, int ost, int osh, float c, cudaStream_t stream) {
+           int osb, int ost, int osh, float c, float* lse, cudaStream_t stream) {
   dim3 grid((tq + kBM - 1) / kBM, h, b);
   attn_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), tq, tk, qsb, qst,
-      qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c);
+      qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Strides are in elements. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a head_dim the kernel is not instantiated for.
+// Strides are in elements; lse is null or fp32 of b * h * tq floats. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head_dim the
+// kernel is not instantiated for.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int b, int tq, int tk, int h, int d, int qsb, int qst,
                                    int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh,
-                                   int osb, int ost, int osh, float scale, void* stream) {
+                                   int osb, int ost, int osh, float scale, void* lse_out,
+                                   void* stream) {
   // scale * log2(e), folded into the exp2 multiplier (m is taken on the unscaled s)
   const float c = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, s);
-    case 32: return launch<32>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, s);
-    case 64: return launch<64>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, s);
+    case 16: return launch<16>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, s);
+    case 32: return launch<32>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, s);
+    case 64: return launch<64>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

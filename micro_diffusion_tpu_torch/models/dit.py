@@ -6,7 +6,8 @@ FFN) -> final layer -> unpatchify, with deferred token masking (mask_ratio > 0:
 the kept tokens are gathered after the patch mixer and scattered back after the
 final layer) and per-block rematerialisation (``remat=True``: per-block
 ``torch.utils.checkpoint``; policy 'full' recomputes the whole block, 'dots'
-keeps the 2-D products' outputs). The other remat policies are not ported yet
+keeps the 2-D products' outputs, 'attn_moe' the self-attention, cross-attention
+and EC-MoE outputs, 'dots_attn_moe' both). The lean variants are not ported yet
 and raise. ``pos_embed`` is a computed constant (a non-persistent buffer), as in
 the JAX package, so converted weights and released checkpoints load strictly.
 """
@@ -21,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.masking import TokenMask, gather_tokens, make_token_mask, scatter_tokens
+from ..ops.remat_names import current_name
 
 from .layers import (
     XAVIER,
@@ -133,20 +135,37 @@ def _moe_block_flags(depth: int, experts_every_n: int, *, skip_last: bool) -> li
     return [i in moe_idx for i in range(depth)]
 
 
-_UNPORTED_ATTENTION = ("flash_bthd",)
-_REMAT_POLICIES = ("full", "dots")
 # JAX's dots_with_no_batch_dims_saveable: the Linears' products are the 2-D ones
 # (a 3-D input is folded to rows); the batched bmm/einsum products, the hand
 # kernels and the elementwise ops are recomputed.
 _DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# JAX's save_only_these_names (dit.py:350-382): the operators that produce the
+# named outputs (ops/remat_names.py)
+_NAMES_SAVED = ("attn_out", "xattn_out", "moe_out")
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+def _saving(ops=(), names=()):
+    """A selective-checkpoint policy that keeps the outputs of ``ops`` and of every
+    operator run under one of ``names``, and recomputes the rest."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops or current_name() in names
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
 
 
-_dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+# remat policy -> the selective-checkpoint context of a block ('full': none). The
+# 'gather' combine adds into the tensor that its first operator made, so the kept
+# entries of a named region change after they are cached (to the kept value).
+_REMAT_CONTEXTS = {
+    "full": None,
+    "dots": functools.partial(create_selective_checkpoint_contexts, _saving(_DOTS_SAVED)),
+    "attn_moe": functools.partial(create_selective_checkpoint_contexts,
+                                  _saving(names=_NAMES_SAVED), allow_cache_entry_mutation=True),
+    "dots_attn_moe": functools.partial(create_selective_checkpoint_contexts,
+                                       _saving(_DOTS_SAVED, _NAMES_SAVED),
+                                       allow_cache_entry_mutation=True),
+}
+_REMAT_POLICIES = tuple(_REMAT_CONTEXTS)
 
 
 class DiT(nn.Module):
@@ -173,11 +192,6 @@ class DiT(nn.Module):
                 f"{_REMAT_POLICIES} are (ROADMAP queue A, item 2)")
         self.remat = remat
         self.remat_policy = remat_policy
-        for impl in (attention_impl, xattn_attention_impl):
-            if impl in _UNPORTED_ATTENTION:
-                raise NotImplementedError(
-                    f"attention_impl {impl!r} needs a kernel not ported yet "
-                    "(ROADMAP queue B, K5)")
         self.input_size = input_size
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -273,13 +287,15 @@ class DiT(nn.Module):
 
     def _run_block(self, block, x, y, c):
         """One DiT block; with remat its activations are recomputed in the backward
-        (the JAX package's nn.remat): all of them under 'full', all but the 2-D
-        products' outputs under 'dots' (a selective-checkpoint context)."""
+        (the JAX package's nn.remat): all of them under 'full'; under the other
+        policies a selective-checkpoint context keeps the 2-D products' outputs
+        ('dots'), the named attention and MoE outputs ('attn_moe'), or both."""
         if not (self.remat and torch.is_grad_enabled()):
             return block(x, y, c)
-        if self.remat_policy == "dots":
-            return checkpoint(block, x, y, c, use_reentrant=False, context_fn=_dots_context)
-        return checkpoint(block, x, y, c, use_reentrant=False)
+        context = _REMAT_CONTEXTS[self.remat_policy]
+        if context is None:
+            return checkpoint(block, x, y, c, use_reentrant=False)
+        return checkpoint(block, x, y, c, use_reentrant=False, context_fn=context)
 
     def forward_without_cfg(self, x, t, y, mask_ratio: float = 0.0,
                             token_mask: TokenMask | None = None,

@@ -28,6 +28,7 @@ from ..ops.attention import dot_product_attention
 from ..ops.moe_dispatch import (combine_expert_rows, combine_rows, dispatch_rows,
                                 gather_expert_rows)
 from ..ops.moe_ffn import _moe_ffn_em_ref, _moe_ffn_ref, moe_ffn, moe_ffn_expert_major
+from ..ops.remat_names import checkpoint_name
 
 # ------------------------------------------------------------------ initialisers
 # An init spec is ("xavier",), ("zeros",) or ("normal", std); trunc_normal in the
@@ -205,7 +206,9 @@ class FeedForwardECMoe(nn.Module):
     The flat gather and combine add rows expert by expert (ops/moe_dispatch.py),
     so their sums on the card are bitwise repeatable. The gradient into the gate
     flows through topk's values and the gate weighting; the routing indices carry
-    none (JAX's stop_gradient, layers.py:439)."""
+    none (JAX's stop_gradient, layers.py:439). The combine runs under
+    ``checkpoint_name("moe_out")``, JAX's tag (layers.py:303,307,390), for the
+    'attn_moe' remat policies."""
 
     def __init__(self, num_experts: int, expert_capacity: float, dim: int,
                  hidden_dim: int, multiple_of: int, w2_init=XAVIER,
@@ -250,15 +253,18 @@ class FeedForwardECMoe(nn.Module):
             idx = m.reshape(n, e * k)
             xg = dispatch_rows(x, idx)  # (n, e*k, d)
             h = moe_ffn(xg.reshape(n, e, k, d), w1, w2).reshape(n, e * k, d)
-            return combine_rows(h * g.reshape(n, e * k, 1), idx, t)
+            hg = h * g.reshape(n, e * k, 1)
+            with checkpoint_name("moe_out"):
+                return combine_rows(hg, idx, t)
         if self.dispatch in ("onehot", "onehot_dots"):
             iota = torch.arange(t, device=x.device)
             onehot = (m[..., None] == iota).to(dt).reshape(n, e * k, t)
             xg = torch.bmm(onehot, x).reshape(n, e, k, d)  # (sample, expert, slot) rows
             ffn = moe_ffn if self.dispatch == "onehot" else _moe_ffn_ref
-            h = ffn(xg, w1, w2)
-            weights = onehot * g.reshape(n, e * k, 1)
-            return torch.bmm(weights.transpose(1, 2), h.reshape(n, e * k, d))  # (n, t, d)
+            h = ffn(xg, w1, w2).reshape(n, e * k, d)
+            weights_t = (onehot * g.reshape(n, e * k, 1)).transpose(1, 2)
+            with checkpoint_name("moe_out"):
+                return torch.bmm(weights_t, h)  # (n, t, d)
 
         # flat expert-major rows: expert i's picks of sample j at flat row j*t + m
         gidx = m + (torch.arange(n, device=x.device) * t)[:, None, None]  # (n, e, k)
@@ -267,7 +273,9 @@ class FeedForwardECMoe(nn.Module):
         ffn = moe_ffn_expert_major if self.dispatch == "gather" else _moe_ffn_em_ref
         h = ffn(xin, w1, w2)
         out = h * g.transpose(0, 1).reshape(e, n * k, 1)
-        return combine_expert_rows(out, gidx, n * t).reshape(n, t, d)
+        with checkpoint_name("moe_out"):
+            out = combine_expert_rows(out, gidx, n * t)
+        return out.reshape(n, t, d)
 
 
 # ------------------------------------------------------------------- attention
@@ -343,7 +351,7 @@ class CrossAttention(nn.Module):
         kv = self.kv_linear(cond).view(b, l, 2, self.hidden)
         k = self.ln_k(kv[:, :, 0]).view(b, l, h, hd)
         v = kv[:, :, 1].view(b, l, h, hd)
-        out = dot_product_attention(q, k, v, impl=self.attn_impl)
+        out = dot_product_attention(q, k, v, impl=self.attn_impl, ckpt_name="xattn_out")
         return self.proj(out.reshape(b, n, self.hidden))
 
 

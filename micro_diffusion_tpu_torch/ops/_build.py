@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source takes seconds. The shared libraries go to ``_build/``
-inside the package (listed in ``.gitignore``), named by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+inside the package (listed in ``.gitignore``), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 
 Nothing is compiled at import: the first wrapper that launches a kernel calls
 :func:`load`. :func:`build_all` starts one ``nvcc`` per source at once, for
@@ -20,8 +21,8 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_attention_lane", "flash_attention_lane_bwd", "moe_ffn", "moe_ffn_bwd",
-           "adaln")
+SOURCES = ("flash_attention_lane", "flash_attention_lane_bwd", "flash_attention", "moe_ffn",
+           "moe_ffn_bwd", "adaln")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,8 +42,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()
     return src, os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 

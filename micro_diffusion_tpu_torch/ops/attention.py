@@ -10,29 +10,35 @@ the JAX package's, with "on the accelerator" read as "on a CUDA tensor":
   'flash'      - the lane kernel where it applies, else ``flash_bh``.
   'flash_lane' - force the lane kernel (its plain version on a CPU tensor).
   'flash_bh'   - force the whole-K kernel (``flash_attention_bh``, K4).
-  'flash_bthd' - a TPU kernel not ported yet (K5): it raises.
+  'flash_bthd' - the tiled flash attention with the saved row logsumexp
+                 (``flash_attention``, K5) at every shape its tiling takes.
 
 On a CPU tensor 'auto' takes the plain path, as the JAX package does off the TPU.
+
+The output is produced under ``checkpoint_name(ckpt_name)`` ("attn_out", or
+"xattn_out" for cross-attention), the JAX package's ``checkpoint_name`` tag (:83),
+so that the 'attn_moe' remat policies keep it: on the kernel routes the region
+holds the kernel's forward operator alone; on the plain route, the product with v.
 """
 
 import torch
 
+from .flash_attention import flash_attention
 from .flash_attention_bh import flash_attention_bh
 from .flash_attention_lane import flash_attention_lane, supported as lane_supported
+from .remat_names import checkpoint_name
 
 
-def _xla_attention(q, k, v, scale: float):
+def _xla_attention(q, k, v, scale: float, ckpt_name: str | None = None):
     """softmax(q k^T * scale) v with fp32 scores and softmax; probabilities are
     cast to q.dtype before the product with v. (B, Tq, H, D) in and out."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     probs = torch.softmax(logits * scale, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    with checkpoint_name(ckpt_name):
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-_UNPORTED = {"flash_bthd": "flash_attention (ROADMAP queue B, K5)"}
-
-
-def _dispatch(q, k, v, *, scale: float, impl: str):
+def _dispatch(q, k, v, *, scale: float, impl: str, ckpt_name: str | None = None):
     on_card = q.is_cuda
     lane_ok = lane_supported(q.shape[2], q.shape[3])
     if impl == "auto":
@@ -44,22 +50,20 @@ def _dispatch(q, k, v, *, scale: float, impl: str):
         impl = "flash"
     if impl == "flash":
         impl = "flash_lane" if lane_ok else "flash_bh"
-    if impl == "flash_lane":
-        return flash_attention_lane(q, k, v, scale)
-    if impl == "flash_bh":
-        return flash_attention_bh(q, k, v, scale)
-    if impl in _UNPORTED:
-        raise NotImplementedError(
-            f"attention impl {impl!r} needs the unported kernel {_UNPORTED[impl]}")
+    kernel = {"flash_lane": flash_attention_lane, "flash_bh": flash_attention_bh,
+              "flash_bthd": flash_attention}.get(impl)
+    if kernel is not None:
+        with checkpoint_name(ckpt_name):
+            return kernel(q, k, v, scale)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
-    return _xla_attention(q, k, v, scale)
+    return _xla_attention(q, k, v, scale, ckpt_name)
 
 
 def dot_product_attention(q, k, v, *, scale: float | None = None,
-                          impl: str | None = None):
+                          impl: str | None = None, ckpt_name: str = "attn_out"):
     """Non-causal multi-head attention, layout (B, T, H, D), default scale
-    1/sqrt(head_dim)."""
+    1/sqrt(head_dim); the output is produced under ``checkpoint_name(ckpt_name)``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _dispatch(q, k, v, scale=scale, impl=impl or "auto")
+    return _dispatch(q, k, v, scale=scale, impl=impl or "auto", ckpt_name=ckpt_name)

@@ -27,6 +27,8 @@ one function in two layouts, so the plain versions and the CUDA kernels are shar
 with ``ops/flash_attention_lane.py``, written for any head count.
 """
 
+import torch
+
 from .flash_attention_lane import (_LaneAttention, _check, _default_scale, _needs_grad,
                                    _on_card, flash_attention_lane_bwd_plain,
                                    flash_attention_lane_plain, launch_bwd, launch_fwd)
@@ -45,8 +47,11 @@ def _check_bh(q, k, v):
                                   f"{HEAD_DIMS}, got {q.shape[3]}")
 
 
-def _forward(q, k, v, scale):
-    """Forward on q's device: the plain version on the CPU, the kernel on the card."""
+@torch.library.custom_op("micro_diffusion_tpu_torch::flash_attention_bh_fwd", mutates_args=())
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Forward on q's device: the plain version on the CPU, the kernel on the card.
+    One operator, so that a selective-checkpoint policy can keep its output
+    (ops/remat_names.py)."""
     if q.device.type == "cpu":
         return flash_attention_bh_plain(q, k, v, scale)
     _check_bh(q, k, v)

@@ -104,21 +104,24 @@ def _on_card(q):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def launch_fwd(counter, q, k, v, scale):
+def launch_fwd(counter, q, k, v, scale, lse=None):
     """Run ``csrc/flash_attention_lane.cu`` on q's card (head_dim 16, 32 or 64, the
-    caller has checked it) and add one to ``counter.launches``; returns out."""
+    caller has checked it) and add one to ``counter.launches``; returns out. Given
+    ``lse`` (fp32, (B, H, Tq) contiguous), the kernel also writes the row logsumexp
+    of the scaled scores there (K5's forward)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
     fn = _build.function(_SRC, "flash_attention_fwd",
-             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_float, ctypes.c_void_p])
+             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_float] +
+             [ctypes.c_void_p] * 2)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk, h, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                 float(scale), stream)
+                 float(scale), None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{counter.__name__} kernel launch failed: CUDA error {err}")
     counter.launches += 1
@@ -164,8 +167,12 @@ def _check_lane(q, k, v):
                          f"D={q.shape[3]}")
 
 
-def _forward(q, k, v, scale):
-    """Forward on q's device: the plain version on the CPU, the kernel on the card."""
+@torch.library.custom_op("micro_diffusion_tpu_torch::flash_attention_lane_fwd",
+                         mutates_args=())
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Forward on q's device: the plain version on the CPU, the kernel on the card.
+    One operator, so that a selective-checkpoint policy can keep its output
+    (ops/remat_names.py)."""
     if q.device.type == "cpu":
         return flash_attention_lane_plain(q, k, v, scale)
     _check_lane(q, k, v)

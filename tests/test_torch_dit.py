@@ -122,14 +122,19 @@ def test_init_shapes_and_zero_layers():
 
 
 def test_unported_modes_raise():
-    """Modes whose kernels or policies are not ported raise naming the ROADMAP; the
-    ones ported with the training slices (remat 'full' and 'dots', fused adaLN,
-    mask_ratio > 0, every moe_dispatch, attention 'flash_bh') build and run."""
-    for kw in (dict(remat=True, remat_policy="attn_moe"), dict(attention_impl="flash_bthd")):
+    """The remat policies not ported yet (the lean variants) raise naming the
+    ROADMAP; the ones ported with the training slices (remat 'full', 'dots',
+    'attn_moe', 'dots_attn_moe', fused adaLN, mask_ratio > 0, every moe_dispatch,
+    attention 'flash_bh' and 'flash_bthd') build and run."""
+    for policy in ("attn_moe_lean", "dots_attn_moe_xlean", "dots_attn_moe_alean",
+                   "dots_lean"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta", **kw)
-    for kw in (dict(remat=True, remat_policy="dots"), dict(fused_adaln=True),
-               dict(moe_dispatch="gather"), dict(attention_impl="flash_bh")):
+            tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta",
+                                  remat=True, remat_policy=policy)
+    for kw in (dict(remat=True, remat_policy="dots"), dict(remat=True, remat_policy="attn_moe"),
+               dict(remat=True, remat_policy="dots_attn_moe"), dict(fused_adaln=True),
+               dict(moe_dispatch="gather"), dict(attention_impl="flash_bh"),
+               dict(attention_impl="flash_bthd")):
         tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta", **kw)
     model = tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="cpu",
                                   remat=True, moe_dispatch="gather",

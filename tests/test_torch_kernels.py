@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions at the
 MicroDiT-XL sampling (forward) and stage-1 training (backward, fused adaLN) shapes,
 the expert-major MoE kernels (K3) and the whole-K attention (K4) at the 512px ones,
+the tiled attention with the saved logsumexp (K5) at the stage-2 and 512px ones,
 in bf16 on the card. Marked `cuda`: each test skips
 without a card (decided inside the test). Run on the card with
 
@@ -15,6 +16,7 @@ import torch
 tlane = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
 tmoe = importlib.import_module("micro_diffusion_tpu_torch.ops.moe_ffn")
 tadaln = importlib.import_module("micro_diffusion_tpu_torch.ops.adaln")
+tfa = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention")
 
 # bf16 outputs of magnitude <~ 1: a few bf16 ulps (the kernel's online softmax and
 # summation order differ from the plain version's)
@@ -266,3 +268,57 @@ def test_k3_k4_refuse_what_they_do_not_take():
         before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError):
         tmoe.moe_ffn_expert_major(xg.float(), w1.float(), w2.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d", [(64, 256, 256, 16, 64), (64, 256, 77, 12, 64),
+                                         (64, 77, 77, 16, 64), (8, 1024, 1024, 16, 64),
+                                         (8, 1024, 77, 16, 64), (4, 512, 77, 5, 32),
+                                         (2, 200, 120, 3, 16), (2, 77, 77, 1, 32)])
+def test_flash_attention_lse_kernels_match_plain(b, tq, tk, h, d):
+    """K5 forward (out and the row logsumexp) and backward at XL stage-2 shapes
+    (mb 64), the 512px ones, other head dims, odd head counts and ragged lengths;
+    k and v strided views of one packed tensor. lse to 1e-3 absolute (fp32 sums of
+    the same exponentials in another order)."""
+    gen = _card()
+    q = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(b, tk, 2, h * d, generator=gen, device="cuda").bfloat16()
+    k, v = kv[:, :, 0].view(b, tk, h, d), kv[:, :, 1].view(b, tk, h, d)
+    do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    before = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    out, lse = tfa._forward(q, k, v, d**-0.5)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+    assert _rel_err(out, ref) <= TOL
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for g, r in zip(got, tfa.flash_attention_bwd_plain(q, k, v, out, lse, do)):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert _rel_err(g, r) <= BWD_TOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_refuses_what_it_does_not_take():
+    """fp32 raises; a head_dim the kernels are not built for raises on the card, as
+    does a length the JAX tiling refuses; through autograd one forward and one
+    backward launch."""
+    gen = _card()
+    q = torch.zeros(2, 64, 3, 32, device="cuda")
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, q, q)
+    q48 = torch.zeros(2, 64, 3, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention(q48, q48, q48)
+    q300 = torch.zeros(1, 300, 1, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q300, q300, q300)
+    qb = torch.randn(2, 64, 3, 32, generator=gen, device="cuda").bfloat16().requires_grad_()
+    before = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    tfa.flash_attention(qb, qb, qb).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)

@@ -102,14 +102,19 @@ def test_cpu_tensors_never_launch_kernels():
 
 
 def test_unported_attention_impls_raise():
-    """'flash_bthd' (K5) still raises naming the ROADMAP; 'flash_bh' and 'flash' off
-    the lane shapes (head_dim 16: the bh kernel, K4) run, on a CPU tensor through
-    K4's plain version, which is the plain attention's function."""
+    """Every TPU attention kernel is ported, so no impl name raises for want of one:
+    a name the JAX dispatch does not know raises ValueError; 'flash_bh', 'flash' off
+    the lane shapes (head_dim 16: the bh kernel, K4) and 'flash_bthd' (K5) run, on a
+    CPU tensor through their plain versions, which are the plain attention's
+    function; K5 refuses a length its tiling does not take, as the JAX kernel does."""
     q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattention.dot_product_attention(q, q, q, impl="flash_bthd")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattention.dot_product_attention(q, q, q, impl="flash_nope")
     q16 = torch.from_numpy(rand((1, 8, 3, 16), 10))
     ref = tattention._xla_attention(q16, q16, q16, 16**-0.5)
-    for impl in ("flash_bh", "flash"):
+    for impl in ("flash_bh", "flash", "flash_bthd"):
         out = tattention.dot_product_attention(q16, q16, q16, impl=impl)
         torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    q300 = torch.zeros(1, 300, 1, 16)
+    with pytest.raises(ValueError, match="flash_attention"):
+        tattention.dot_product_attention(q300, q300, q300, impl="flash_bthd")

@@ -12,7 +12,9 @@ Phases, each of which fails the run on a failed check:
                F.scaled_dot_product_attention as the library yardstick.
      The backward kernels likewise at every MicroDiT-XL stage-1 training shape
                (microbatch 256) and the 512px ones, with SDPA's backward as the
-               attention yardstick.
+               attention yardstick; the attention backwards (K1b, K4b) from the
+               kernel forward's out and row statistics, two calls bitwise equal,
+               their deviation from the exact TPU contract logged.
      The fused adaLN LayerNorm+modulate kernel (K6) likewise at every shape the
                trainer path runs (XL stage 1, the Tiny round trip) and one 512px
                shape (no PyTorch call computes it: no library yardstick).
@@ -342,34 +344,53 @@ def check_moe(shape, gen, n=8, e=8):
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
 
 
-def check_attention_bwd(shape, gen):
+def attn_bwd_row(mod, bwd, plain, shape, gen, iters):
+    """K1b or K4b (``bwd``, module ``mod``) at one (B, Tq, Tk, H, D) shape, from the
+    kernel forward's out and row statistics: against the plain version of the same
+    function (``plain``, delta from (do, out)) at BWD_TOL, bitwise equal across two
+    calls, and its deviation from the exact contract (``flash_attention_lane_bwd_plain``,
+    delta = rowsum(e * dp) * inv_l) logged. The backward alone is timed; SDPA's
+    backward on the same inputs is the library yardstick."""
     import torch
     import torch.nn.functional as F
     fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
 
-    b, tq, tk, h = shape
-    q, k, v = attn_case(tq, tk, h, gen, b)
-    do = torch.randn(b, tq, h, 64, generator=gen, device="cuda").bfloat16()
-    got = fal.flash_attention_lane_bwd(q, k, v, do)
+    b, tq, tk, h, d = shape
+    q, k, v = attn_case(tq, tk, h, gen, b, d)
+    do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+    out, stats = mod._forward_stats(q, k, v, d**-0.5)
+    got = bwd(q, k, v, out, stats, do)
+    again = bwd(q, k, v, out, stats, do)
     torch.cuda.synchronize()
-    ref = fal.flash_attention_lane_bwd_plain(q, k, v, do)
+    deterministic = all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = plain(q, k, v, out, stats, do)
     errs = [rel_err(g, r) for g, r in zip(got, ref)]
-    if not all(math.isfinite(e) and e <= BWD_TOL for e in errs):
-        raise AssertionError(f"attention backward {shape}: rel errs (dq, dk, dv) {errs} "
-                             f"> {BWD_TOL}")
+    if not (deterministic and all(math.isfinite(e) and e <= BWD_TOL for e in errs)):
+        raise AssertionError(f"{bwd.__name__} {shape}: rel errs (dq, dk, dv) {errs} > "
+                             f"{BWD_TOL} or two calls differ (bitwise equal: {deterministic})")
     err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-    del got, ref
-    ms = time_ms(lambda: fal.flash_attention_lane_bwd(q, k, v, do))
-    plain_ms = time_ms(lambda: fal.flash_attention_lane_bwd_plain(q, k, v, do), iters=3,
-                       warmup=1)
-    # the library yardstick: SDPA's backward alone, on a retained forward graph
+    dev = [rel_err(g, r) for g, r in zip(got, fal.flash_attention_lane_bwd_plain(q, k, v, do))]
+    del got, again, ref
+    ms = time_ms(lambda: bwd(q, k, v, out, stats, do), iters=iters)
+    plain_ms = time_ms(lambda: plain(q, k, v, out, stats, do), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt)
     dot = do.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+    lib_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True),
+                     iters=iters)
+    return dict(max_abs_err=err, max_rel_err=max(errs), exact_contract_rel_err=dev,
+                bitwise_repeatable=deterministic, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms)
+
+
+def check_attention_bwd(shape, gen):
+    fal = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
+
+    b, tq, tk, h = shape
+    r = attn_bwd_row(fal, fal.flash_attention_lane_bwd, fal.flash_attention_lane_bwd_saved_plain,
+                     (b, tq, tk, h, 64), gen, iters=20)
     bound_ms, by = bound(*attn_bwd_flops_bytes(b, tq, tk, h))
-    return dict(B=b, Tq=tq, Tk=tk, H=h, max_abs_err=err, max_rel_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    return dict(B=b, Tq=tq, Tk=tk, H=h, **r, bound_ms=bound_ms, bound_by=by)
 
 
 def check_moe_bwd(shape, gen):
@@ -495,33 +516,13 @@ def check_bh(shape, gen):
 
 def check_bh_bwd(shape, gen):
     """K4's backward against its plain version; SDPA's backward as the yardstick."""
-    import torch
-    import torch.nn.functional as F
     bh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
 
     b, tq, tk, h, d = shape
-    q, k, v = attn_case(tq, tk, h, gen, b, d)
-    do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
-    got = bh.flash_attention_bh_bwd(q, k, v, do)
-    torch.cuda.synchronize()
-    ref = bh.flash_attention_bh_bwd_plain(q, k, v, do)
-    errs = [rel_err(g, r) for g, r in zip(got, ref)]
-    if not all(math.isfinite(e) and e <= BWD_TOL for e in errs):
-        raise AssertionError(f"flash_attention_bh backward {shape}: rel errs (dq, dk, dv) "
-                             f"{errs} > {BWD_TOL}")
-    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-    del got, ref
-    ms = time_ms(lambda: bh.flash_attention_bh_bwd(q, k, v, do), iters=5)
-    plain_ms = time_ms(lambda: bh.flash_attention_bh_bwd_plain(q, k, v, do), iters=2,
-                       warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt)
-    dot = do.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
-                     iters=5)
+    r = attn_bwd_row(bh, bh.flash_attention_bh_bwd, bh.flash_attention_bh_bwd_saved_plain,
+                     shape, gen, iters=5)
     bound_ms, by = bound(*bh_bwd_flops_bytes(b, tq, tk, h, d))
-    return dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=err, max_rel_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    return dict(B=b, Tq=tq, Tk=tk, H=h, D=d, **r, bound_ms=bound_ms, bound_by=by)
 
 
 def check_fa(shape, gen):

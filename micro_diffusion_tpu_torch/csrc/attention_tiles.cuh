@@ -1,6 +1,7 @@
 // Tile helpers shared by the attention kernels for Hopper (sm_90a):
-// flash_attention_lane.cu (forward: K1, K4 and K5's forward), flash_attention_lane_bwd.cu
-// (K1b, K4b) and flash_attention.cu (K5's dq and dk/dv passes).
+// flash_attention_lane.cu (forward: K1, K4 and K5's forward) and flash_attention.cu
+// (K5's dq and dk/dv passes); flash_attention_lane_bwd.cu (K1b, K4b) takes the
+// shared-memory address, bf16 packing and stride helpers through attention_wgmma.cuh.
 //
 // Tiles are 64 rows (queries or keys) by the head dim D in {16, 32, 64}, bf16, in
 // shared memory with a row stride of D + 8 elements (16-byte aligned rows, and

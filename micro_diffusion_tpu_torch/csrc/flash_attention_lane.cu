@@ -12,6 +12,9 @@
 //     same function that also saves the row logsumexp for its backward
 //     (flash_attention.cu): given an lse pointer, the kernel writes
 //     lse = rowmax(s) * scale + log(l) in fp32, (B, H, Tq) contiguous.
+// Given a stats pointer, the kernel also writes what K1b/K4b's backward
+// (flash_attention_lane_bwd.cu) reads: the row max m of the unscaled s and 1/l,
+// fp32, (2, B, H, Tq) contiguous. The samplers (no gradient) pass neither.
 // One kernel templated on D serves all three: ops/flash_attention_lane.py,
 // ops/flash_attention_bh.py and ops/flash_attention.py call the one entry point and
 // count their own launches. K5's contract normalises before the cast,
@@ -64,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int tq,
                        int tk, int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb,
                        int vst, int vsh, int osb, int ost, int osh, float c,
-                       float* __restrict__ lse) {
+                       float* __restrict__ lse, float* __restrict__ stats) {
   constexpr int LD = D + 8;   // shared row stride (bf16): 16-byte aligned rows
   constexpr int KS = D / 16;  // k16 steps over the head dim
   constexpr int NT = D / 8;   // n8 tiles of the output
@@ -188,9 +191,13 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / l;
     const int row = qt * kBM + warp * 16 + g + hf * 8;
+    const int64_t idx = ((int64_t)b * gridDim.y + h) * tq + row;
     if (lse != nullptr && t4 == 0 && row < tq)  // natural log of the scaled scores' sum
-      lse[((int64_t)b * gridDim.y + h) * tq + row] =
-          (m_run[hf] * c + log2f(l)) * 0.6931471805599453f;
+      lse[idx] = (m_run[hf] * c + log2f(l)) * 0.6931471805599453f;
+    if (stats != nullptr && t4 == 0 && row < tq) {
+      stats[idx] = m_run[hf];
+      stats[(int64_t)gridDim.z * gridDim.y * tq + idx] = inv;
+    }
     if (row < tq) {
       __nv_bfloat16* orow = o + (int64_t)b * osb + (int64_t)row * ost + (int64_t)h * osh;
 #pragma unroll
@@ -204,33 +211,35 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk, int h,
            int qsb, int qst, int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh,
-           int osb, int ost, int osh, float c, float* lse, cudaStream_t stream) {
+           int osb, int ost, int osh, float c, float* lse, float* stats, cudaStream_t stream) {
   dim3 grid((tq + kBM - 1) / kBM, h, b);
   attn_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), tq, tk, qsb, qst,
-      qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse);
+      qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Strides are in elements; lse is null or fp32 of b * h * tq floats. Returns
+// Strides are in elements; lse is null or fp32 of b * h * tq floats, stats null or
+// fp32 of 2 * b * h * tq floats (m, then 1/l). Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head_dim the
 // kernel is not instantiated for.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int b, int tq, int tk, int h, int d, int qsb, int qst,
                                    int qsh, int ksb, int kst, int ksh, int vsb, int vst, int vsh,
                                    int osb, int ost, int osh, float scale, void* lse_out,
-                                   void* stream) {
+                                   void* stats_out, void* stream) {
   // scale * log2(e), folded into the exp2 multiplier (m is taken on the unscaled s)
   const float c = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  float* stats = static_cast<float*>(stats_out);
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, s);
-    case 32: return launch<32>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, s);
-    case 64: return launch<64>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, s);
+    case 16: return launch<16>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, stats, s);
+    case 32: return launch<32>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, stats, s);
+    case 64: return launch<64>(q, k, v, o, b, tq, tk, h, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh, c, lse, stats, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -100,8 +100,6 @@ class LatentsDataLoader:
         self.process_count = process_count
         self.prefetch_factor = max(1, prefetch_factor)
         self.num_epochs = num_epochs
-        self._epoch = 0
-        self._step_in_epoch = 0
         self._consumed_state = {"epoch": 0, "step_in_epoch": 0}
 
     def state_dict(self) -> Dict[str, int]:
@@ -110,9 +108,8 @@ class LatentsDataLoader:
         return dict(self._consumed_state)
 
     def load_state_dict(self, state: Dict[str, int]) -> None:
-        self._epoch = int(state["epoch"])
-        self._step_in_epoch = int(state["step_in_epoch"])
-        self._consumed_state = {"epoch": self._epoch, "step_in_epoch": self._step_in_epoch}
+        self._consumed_state = {"epoch": int(state["epoch"]),
+                                "step_in_epoch": int(state["step_in_epoch"])}
 
     def steps_per_epoch(self) -> int:
         n = len(self.dataset)
@@ -143,23 +140,23 @@ class LatentsDataLoader:
         samples = self.dataset.get_batch(indices, epoch)
         return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
-    def _batches(self) -> Iterator:
-        while self.num_epochs is None or self._epoch < self.num_epochs:
-            epoch = self._epoch
+    def _batches(self, epoch: int, start: int) -> Iterator:
+        """(state after the batch, batch) from ``start`` steps into ``epoch`` on."""
+        while self.num_epochs is None or epoch < self.num_epochs:
             order = self._epoch_order(epoch)
             gbs = self.global_batch_size
             lo = self.process_index * self.batch_size
-            for step in range(self._step_in_epoch, self.steps_per_epoch()):
+            for step in range(start, self.steps_per_epoch()):
                 mine = order[step * gbs:(step + 1) * gbs][lo:lo + self.batch_size]
                 if len(mine) == 0:
                     continue
-                self._step_in_epoch = step + 1
                 yield {"epoch": epoch, "step_in_epoch": step + 1}, self._assemble(mine, epoch)
-            self._epoch += 1
-            self._step_in_epoch = 0
+            epoch, start = epoch + 1, 0
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Batches assembled by a background thread, ``prefetch_factor`` ahead.
+        """Batches assembled by a background thread, ``prefetch_factor`` ahead,
+        from the last batch a consumer received (``state_dict()``): batches the
+        thread prefetched but nobody took are produced again by the next iterator.
         Closing the iterator early stops the thread."""
         q: queue.Queue = queue.Queue(maxsize=self.prefetch_factor)
         sentinel = object()
@@ -175,9 +172,11 @@ class LatentsDataLoader:
                     continue
             return False
 
+        start = dict(self._consumed_state)
+
         def producer():
             try:
-                for item in self._batches():
+                for item in self._batches(start["epoch"], start["step_in_epoch"]):
                     if not put(item):
                         return
             except BaseException as e:  # handed to the consumer, which re-raises

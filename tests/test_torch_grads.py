@@ -59,11 +59,13 @@ def test_attention_backward_matches_jax(b, tq, tk, h):
 
 
 def test_attention_backward_is_the_plain_contract():
-    """On CPU tensors the autograd Function runs flash_attention_lane_bwd_plain, and
-    that matches autograd through the plain forward (fp32, 1e-5)."""
+    """On CPU tensors the backward entry point runs the kernels' plain version from
+    the forward's out and row statistics, and that matches autograd through the
+    plain forward (fp32, 1e-5)."""
     q, k, v, do = (torch.from_numpy(rand(s, i)) for i, s in enumerate(
         [(2, 64, 2, 64), (2, 77, 2, 64), (2, 77, 2, 64), (2, 64, 2, 64)]))
-    direct = tlane.flash_attention_lane_bwd(q, k, v, do)
+    out, stats = tlane.flash_attention_lane_stats_plain(q, k, v)
+    direct = tlane.flash_attention_lane_bwd(q, k, v, out, stats, do)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = tlane.flash_attention_lane_plain(*leaves)
     auto = torch.autograd.grad(out, leaves, do)

@@ -75,6 +75,17 @@ def _rel_err(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+# the forward's row statistics: m is the max of the same fp32 scores summed in
+# another order, 1 / rowsum(e) an fp32 sum taken online across key tiles
+STATS_TOL = 1e-3
+
+
+def _stats_err(stats, ref):
+    """(max |m - m_ref|, max relative error of 1 / rowsum(e))."""
+    return ((stats[0] - ref[0]).abs().max().item(),
+            ((stats[1] - ref[1]).abs() / ref[1].abs()).max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,tq,tk,h", [(256, 77, 77, 16), (256, 256, 256, 12),
                                        (256, 256, 77, 12), (256, 64, 64, 8),
@@ -82,20 +93,50 @@ def _rel_err(got, ref):
                                        (8, 1024, 1024, 16), (8, 1024, 77, 16)])
 def test_flash_attention_bwd_kernel_matches_plain(b, tq, tk, h):
     """The stage-1 shapes at mb 256 (caption, mixer self/cross, backbone self/cross)
-    and the 512px ones; k and v strided views, as the model hands them."""
+    and the 512px ones; k and v strided views, as the model hands them. The forward
+    saves the row statistics (against the plain forward's), the backward kernels
+    match their plain version from the same out and statistics, and two calls are
+    bitwise equal."""
     gen = _card()
     q = torch.randn(b, tq, h, 64, generator=gen, device="cuda").bfloat16()
     kv = torch.randn(b, tk, 2, h * 64, generator=gen, device="cuda").bfloat16()
     k, v = kv[:, :, 0].view(b, tk, h, 64), kv[:, :, 1].view(b, tk, h, 64)
     do = torch.randn(b, tq, h, 64, generator=gen, device="cuda").bfloat16()
+    out, stats = tlane._forward_stats(q, k, v, 0.125)
     before = tlane.flash_attention_lane_bwd.launches
-    got = tlane.flash_attention_lane_bwd(q, k, v, do)
+    got = tlane.flash_attention_lane_bwd(q, k, v, out, stats, do)
+    again = tlane.flash_attention_lane_bwd(q, k, v, out, stats, do)
     torch.cuda.synchronize()
-    assert tlane.flash_attention_lane_bwd.launches == before + 1
-    ref = tlane.flash_attention_lane_bwd_plain(q, k, v, do)
+    assert tlane.flash_attention_lane_bwd.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref_out, ref_stats = tlane.flash_attention_lane_stats_plain(q, k, v)
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL
+    assert max(_stats_err(stats, ref_stats)) <= STATS_TOL
+    ref = tlane.flash_attention_lane_bwd_saved_plain(q, k, v, out, stats, do)
     for g, r in zip(got, ref):
         assert g.dtype == torch.bfloat16 and g.shape == r.shape
         assert _rel_err(g, r) <= BWD_TOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_forward_writes_stats_only_for_a_gradient():
+    """Without a gradient the forward is the out-only operator (one launch, no
+    statistics); with one, the autograd Function keeps (out, stats) from one
+    launch."""
+    gen = _card()
+    q = torch.randn(4, 256, 2, 64, generator=gen, device="cuda").bfloat16()
+    before = tlane.flash_attention_lane.launches
+    with torch.no_grad():
+        out = tlane.flash_attention_lane(q, q, q)
+    assert isinstance(out, torch.Tensor) and out.shape == q.shape
+    qg = q.clone().requires_grad_()
+    out_g = tlane.flash_attention_lane(qg, qg, qg)
+    torch.cuda.synchronize()
+    assert tlane.flash_attention_lane.launches == before + 2
+    assert torch.equal(out, out_g.detach())
+    saved = out_g.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[4].shape == (2, 4, 2, 256)
+    assert saved[4].dtype == torch.float32
 
 
 @pytest.mark.cuda
@@ -228,14 +269,17 @@ def test_flash_attention_bh_kernels_match_plain(b, tq, tk, h, d):
     k, v = kv[:, :, 0].view(b, tk, h, d), kv[:, :, 1].view(b, tk, h, d)
     do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
     before = tbh.flash_attention_bh.launches, tbh.flash_attention_bh_bwd.launches
-    out = tbh.flash_attention_bh(q, k, v)
-    got = tbh.flash_attention_bh_bwd(q, k, v, do)
+    out, stats = tbh._forward_stats(q, k, v, d**-0.5)
+    got = tbh.flash_attention_bh_bwd(q, k, v, out, stats, do)
+    again = tbh.flash_attention_bh_bwd(q, k, v, out, stats, do)
     torch.cuda.synchronize()
     assert (tbh.flash_attention_bh.launches, tbh.flash_attention_bh_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
-    ref = tbh.flash_attention_bh_plain(q, k, v)
+        before[0] + 1, before[1] + 2)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref, ref_stats = tbh.flash_attention_bh_stats_plain(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= TOL
-    for g, r in zip(got, tbh.flash_attention_bh_bwd_plain(q, k, v, do)):
+    assert max(_stats_err(stats, ref_stats)) <= STATS_TOL
+    for g, r in zip(got, tbh.flash_attention_bh_bwd_saved_plain(q, k, v, out, stats, do)):
         assert g.dtype == torch.bfloat16 and g.shape == r.shape
         assert _rel_err(g, r) <= BWD_TOL
 

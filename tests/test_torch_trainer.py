@@ -133,6 +133,30 @@ def test_loader_matches_jax(tmp_path, shuffle_algo):
             assert np.array_equal(bj[k], bt[k]), k
 
 
+def test_loader_iterated_again_resumes_where_the_consumer_stopped(tmp_path):
+    """Two batches taken, the iterator closed (its thread had prefetched further),
+    then a new iterator: it yields step 3, the batch a fresh loader yields third,
+    not the first batch after the prefetched ones."""
+    write_latents(tmp_path / "ds", 48, seed=4)
+    kw = dict(datadir=str(tmp_path / "ds"), batch_size=4, image_size=8 * RES, seed=7,
+              prefetch_factor=2)
+    loader = tloader.build_streaming_latents_dataloader(**kw)
+    it = iter(loader)
+    first = [next(it) for _ in range(2)]
+    it.close()
+    assert loader.state_dict() == {"epoch": 0, "step_in_epoch": 2}
+    it = iter(loader)
+    third = next(it)
+    it.close()
+    assert loader.state_dict() == {"epoch": 0, "step_in_epoch": 3}
+    fresh = iter(tloader.build_streaming_latents_dataloader(**kw))
+    expected = [next(fresh) for _ in range(3)]
+    fresh.close()
+    for got, want in zip(first + [third], expected):
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+
+
 # ------------------------------------------------------------------ configs
 
 

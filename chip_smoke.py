@@ -21,7 +21,8 @@ Phases, each of which fails the run on a failed check:
      The expert-major MoE kernels (K3) and the whole-K attention (K4), forward and
                backward, at the shapes phases 7-9 record (SDPA as K4's yardstick);
                the tiled attention with the saved logsumexp (K5), forward (out and
-               lse) and backward, at the shapes [stage2] records under 'flash_bthd',
+               lse) and backward (K1b/K4b's kernels in their lse form, two calls
+               bitwise equal), at the shapes [stage2] records under 'flash_bthd',
                two 512px ones and the caption block's (SDPA as the yardstick).
   3. slice   - MicroDiT-XL at full width (256px, seeded init with the zero-init
                layers perturbed): one CFG forward through the kernels against the
@@ -528,8 +529,8 @@ def check_bh_bwd(shape, gen):
 def check_fa(shape, gen):
     """K5 forward (out and the row logsumexp) and backward against their plain
     versions at one (B, Tq, Tk, H, D) shape, the backward on the kernel's own out
-    and lse; SDPA forward and backward on the same inputs as the yardsticks.
-    Returns the forward and the backward row."""
+    and lse and bitwise equal across two calls; SDPA forward and backward on the
+    same inputs as the yardsticks. Returns the forward and the backward row."""
     import torch
     import torch.nn.functional as F
     fa = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention")
@@ -540,7 +541,9 @@ def check_fa(shape, gen):
     do = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
     out, lse = fa._forward(q, k, v, scale)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
+    deterministic = all(torch.equal(g, a) for g, a in zip(got, again))
     ref, ref_lse = fa.flash_attention_plain(q, k, v)
     err, rel = attn_errs(out, ref, f"flash_attention {shape}")
     lse_err = (lse - ref_lse).abs().max().item()
@@ -548,11 +551,12 @@ def check_fa(shape, gen):
         raise AssertionError(f"flash_attention {shape}: lse max abs err {lse_err} > {LSE_TOL}")
     ref_g = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
     errs = [rel_err(g, r) for g, r in zip(got, ref_g)]
-    if not all(math.isfinite(e) and e <= BWD_TOL for e in errs):
+    if not (deterministic and all(math.isfinite(e) and e <= BWD_TOL for e in errs)):
         raise AssertionError(f"flash_attention backward {shape}: rel errs (dq, dk, dv) "
-                             f"{errs} > {BWD_TOL}")
+                             f"{errs} > {BWD_TOL} or two calls differ (bitwise equal: "
+                             f"{deterministic})")
     bwd_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref_g))
-    del got, ref, ref_lse, ref_g
+    del got, again, ref, ref_lse, ref_g
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fwd = dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=err, max_rel_err=rel,
                lse_max_abs_err=lse_err,
@@ -564,6 +568,7 @@ def check_fa(shape, gen):
     sdpa = F.scaled_dot_product_attention(qg, kg, vg)
     dot = do.transpose(1, 2)
     bwd = dict(B=b, Tq=tq, Tk=tk, H=h, D=d, max_abs_err=bwd_err, max_rel_err=max(errs),
+               bitwise_repeatable=deterministic,
                ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do), iters=5),
                plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do),
                                 iters=2, warmup=1),
@@ -797,7 +802,7 @@ def run_slice(steps, prompts):
                 latents_std=latents.float().std().item())
 
 
-def profile_forward(model, x, sigma, y, top=12):
+def profile_forward(model, x, sigma, y, top=12, label="XL CFG forward (B=8)"):
     """One XL CFG forward (one sampler step's DiT call) under torch.profiler: wall
     time, the device's busy time (sum of kernel durations on the one stream) and
     idle share, and the kernels that take the most device time."""
@@ -818,10 +823,10 @@ def profile_forward(model, x, sigma, y, top=12):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy <= 0:
-        log(f"[profile] XL CFG forward wall {wall:.2f} ms; device time not measured "
+        log(f"[profile] {label} wall {wall:.2f} ms; device time not measured "
             "(the profiler saw no kernels)")
         return
-    log(f"[profile] XL CFG forward (B=8): wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+    log(f"[profile] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
         f"idle share {1 - busy / wall:.3f}, {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
@@ -1601,6 +1606,8 @@ def run_sample512(model, prompts=SAMPLE512_PROMPTS, steps=STEPS):
                              f"{bool(torch.isfinite(latents).all())}")
     if got != want:
         raise AssertionError(f"512px generate launch counts {got} != {want}")
+    profile_forward(model, x, torch.full((1,), 2.5, device="cuda"), y,
+                    label=f"XL 512px CFG forward (B={2 * prompts})")
     return dict(rec=rec, launches=got, wall_ms=wall * 1e3, img_per_s=prompts / wall,
                 latents_std=latents.float().std().item())
 
@@ -1957,7 +1964,8 @@ def main():
         summarize("flash_attention", "micro_diffusion_tpu_torch/csrc/flash_attention_lane.cu",
                   FA_REPLACES, fa_rows, rec2.step_shapes("fa", s2b["k"]), s2b["want"]["fa"],
                   bh_key, fa_flops_bytes, s2_per),
-        summarize("flash_attention_bwd", "micro_diffusion_tpu_torch/csrc/flash_attention.cu",
+        summarize("flash_attention_bwd",
+                  "micro_diffusion_tpu_torch/csrc/flash_attention_lane_bwd.cu",
                   FA_BWD_REPLACES, fa_bwd_rows, rec2.step_shapes("fa", s2b["k"], True),
                   s2b["want"]["fa_bwd"], bh_key, fa_bwd_flops_bytes, s2_per),
     ]

@@ -1,5 +1,6 @@
-// Warpgroup (wgmma), mbarrier and TMA helpers for the attention backward kernels on
-// Hopper (sm_90a): flash_attention_lane_bwd.cu (K1b, K4b).
+// Warpgroup (wgmma), mbarrier and TMA helpers for the attention kernels on Hopper
+// (sm_90a): flash_attention_lane.cu (the forward: K1, K4, K5) and
+// flash_attention_lane_bwd.cu (the backward: K1b, K4b, K5b), device and host side.
 //
 // Two shared-memory tile layouts, R rows by the head dim D in {16, 32, 64}, bf16:
 // - swizzled, as TMA writes a 64 x D box with a D * 2-byte swizzle (desc_sw_k,
@@ -21,13 +22,30 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_tiles.cuh"
-
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Element strides of a (B, T, H, D) tensor's batch, sequence and head dims.
+struct Strides {
+  int sb, st, sh;
+};
 
 // byte offset of core matrix (rb, cb) in a tile with D columns
 template <int D>
@@ -220,6 +238,53 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- host side
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map over a (B, T, H, D) bf16 tensor with element strides st: 64-row boxes
+// of one (batch, head), swizzled by D * 2 bytes; rows past T read as zeros.
+inline int make_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d, Strides st) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.sh * 2, (cuuint64_t)st.st * 2,
+                                 (cuuint64_t)st.sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)d, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = d == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB default).
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 }  // namespace

@@ -1,13 +1,17 @@
-// Non-causal multi-head attention backward from the forward's saved row statistics,
+// Non-causal multi-head attention backward from the forward's saved row values,
 // head_dim 16, 32 or 64, any head count, for Hopper (sm_90a).
 //
-// Replaces the backward kernels of the same two Pallas TPU kernels as
-// flash_attention_lane.cu (one function, two TPU layouts):
-//   micro_diffusion_tpu/ops/flash_attention_lane.py:_bwd_kernel (K1b, head_dim 64)
-//   micro_diffusion_tpu/ops/flash_attention_bh.py:_bwd_kernel (K4b, 'flash_bh').
+// Replaces the backward kernels of the three Pallas TPU attention kernels whose
+// forward flash_attention_lane.cu replaces:
+//   micro_diffusion_tpu/ops/flash_attention_lane.py:_bwd_kernel :80 (K1b, head_dim 64)
+//   micro_diffusion_tpu/ops/flash_attention_bh.py:_bwd_kernel :48 (K4b, 'flash_bh'),
+//     one function in two TPU layouts, from the row statistics (the stats form), and
+//   micro_diffusion_tpu/ops/flash_attention.py:_dq_kernel :140 and _dkv_kernel :172
+//     (K5b, 'flash_bthd', under `_bwd_rule` :235 with the delta it leaves to XLA),
+//     from the row logsumexp (the lse form).
 //
-// Contract (the TPU kernel's), per (batch, head), with m the row max of the
-// unscaled s = q k^T and inv_l = 1 / rowsum(e) saved by the forward
+// Contract of the stats form (the TPU kernels'), per (batch, head), with m the row
+// max of the unscaled s = q k^T and inv_l = 1 / rowsum(e) saved by the forward
 // (flash_attention_lane.cu's `stats` output):
 //   e    = exp2((s - m) * scale * log2(e))      (fp32; the forward's e exactly)
 //   dv   = bf16(e)^T @ bf16(do * inv_l)
@@ -17,12 +21,21 @@
 //   dk   = ds_u^T @ bf16(q * scale * inv_l)
 // with one departure: delta = rowsum(fp32(do) * fp32(out)) from the forward's bf16
 // out, where the TPU kernel sums rowsum(e * dp) * inv_l. The two are equal up to
-// out's bf16 roundings (K5b takes its delta the same way). All products are bf16 x
-// bf16 with fp32 accumulation; dq, dk, dv are stored as bf16.
+// out's bf16 roundings (K5b's contract takes its delta so).
+// Contract of the lse form (K5b's), from the row logsumexp lse of the scaled scores:
+//   p = exp(s * scale - lse),  ds = bf16(p * (dp - delta) * scale)
+//   dq = ds @ k,  dk = ds^T @ q,  dv = bf16(p)^T @ do
+// Both are one computation with per-row values (LSE is a template parameter):
+//   form   exponent offset mc   q_s                      do_s              ds factor  dq factor
+//   stats  m scale log2(e)      bf16(q * scale * inv_l)  bf16(do * inv_l)  1          scale inv_l
+//   lse    lse log2(e)          q                        do                scale      1
+// with e = exp2(s * scale * log2(e) - mc), ds = bf16(e (dp - delta) * ds factor),
+// dv = bf16(e)^T do_s, dk = ds^T q_s, dq = (ds k) * dq factor. All products are bf16
+// x bf16 with fp32 accumulation; dq, dk, dv are stored as bf16.
 //
 // Layout: q, do, out (B, Tq, H, D) and k, v (B, Tk, H, D) bf16, read through their
 // (batch, seq, head) strides, head dim contiguous; dq, dk, dv written through
-// theirs. stats (2, B, H, Tq) fp32: m, inv_l.
+// theirs. stats (2, B, H, Tq) fp32: m, inv_l; or lse (B, H, Tq) fp32.
 //
 // Design: two kernels, one sweep each, deterministic (no atomics: every output
 // element is written by one thread after a fixed-order sum). Products are wgmma
@@ -34,39 +47,39 @@
 // the layout wgmma reads them in; mbarriers count the bytes in.
 //   attn_bwd_dq_kernel, one block per 64 NW query rows (NW warpgroups, 2 blocks an
 //     SM): a prologue computes delta for its rows from do and out, and writes
-//     each row's part of its packed query tile for the second kernel (the scaled
-//     copies q_s = bf16(q * scale * inv_l), do_s = bf16(do * inv_l), m * scale *
-//     log2(e) and delta; once per row, not once per key block); then one sweep
-//     over the key tiles, which thread 0 streams by TMA two stages ahead: s and dp
-//     (q and do resident), e and ds_u in registers, dq += ds_u @ k with ds_u the
-//     A operand straight from the registers.
+//     each row's part of its packed query tile for the second kernel (mc and
+//     delta, and in the stats form the scaled copies q_s and do_s; once per row,
+//     not once per key block); then one sweep over the key tiles, which thread 0
+//     streams by TMA two stages ahead: s and dp (q and do resident), e and ds in
+//     registers, dq += ds @ k with ds the A operand straight from the registers.
 //   attn_bwd_dkdv_kernel, one block per 64 NW keys (128 at every Tk over 64), warp
 //     specialized: a producer warp loads k and v, then fills each stage (the q and
-//     do tiles by TMA, the packed tile by one bulk copy) once the consumers have
-//     marked it empty; the NW consumer warpgroups (k and v resident, dk and dv in
-//     registers) compute s^T and dp^T, then dv += bf16(e)^T @ do_s and dk +=
-//     ds_u^T @ q_s with e^T and ds_u^T as register A operands. Neither role waits
-//     on a block-wide barrier inside the sweep.
-// The packed tiles sit in wgmma's unswizzled core-matrix layout
+//     do tiles by TMA, the packed tile by one bulk copy: all of it in the stats
+//     form, only mc and delta in the lse form, whose q_s and do_s are the stage's q
+//     and do tiles) once the consumers have marked it empty; the NW consumer
+//     warpgroups (k and v resident, dk and dv in registers) compute s^T and dp^T,
+//     then dv += bf16(e)^T @ do_s and dk += ds^T @ q_s with e^T and ds^T as register
+//     A operands. Neither role waits on a block-wide barrier inside the sweep.
+// The packed scaled tiles sit in wgmma's unswizzled core-matrix layout
 // (attention_wgmma.cuh).
 //
 // Bound on this card: per (batch, head) the function's 5 products of 2 Tq Tk D
-// FLOPs against 2 D (3 Tq + 4 Tk) bytes: bytes at T = 256 (~183 FLOP/byte under
-// the ~295 ridge) and for the Tk = 77 cross-attention, tensor cores at T = 1024
-// (731 FLOP/byte). At D <= 32 the two exp2 per score (the special-function unit,
-// 16 per clock per SM) cost about as much as the 7 products on the tensor cores.
+// FLOPs against 2 D (3 Tq + 4 Tk) bytes (K5b also reads out and lse: 2 D (4 Tq +
+// 4 Tk) + 4 Tq): bytes at T = 256 (~156-183 FLOP/byte under the ~295 ridge) and for
+// the Tk = 77 cross-attention, tensor cores at T = 1024 (625-731 FLOP/byte). At
+// D <= 32 the two exp2 per score (the special-function unit, 16 per clock per SM)
+// cost about as much as the 7 products on the tensor cores.
 // Neither bound is reached: each consumer warpgroup runs its tile as one dependent
 // chain (products, wait, exponentials, products, wait), so the tensor cores idle
-// while it exponentiates (PERF.md section 6).
+// while it exponentiates (PERF.md section 7).
 //
 // Ragged lengths: rows past Tq or Tk arrive as zeros (TMA's fill; the packed rows
 // are written as zeros). Keys past Tk get e = 0 in the dq kernel (a zero-filled
-// key would give exp2(-m c), which overflows for a row whose max is far below 0);
+// key would give exp2(-mc), which overflows for a row whose max is far below 0);
 // in the dk/dv kernel they only reach their own dk, dv rows, which are not stored.
-// Query rows past Tq carry zero per-row values and zero scaled rows, so they add
+// Query rows past Tq carry zero per-row values and zero q and do rows, so they add
 // nothing to dk, dv.
 
-#include <cuda.h>
 #include <math.h>
 
 #include "attention_wgmma.cuh"
@@ -75,8 +88,6 @@ namespace {
 
 constexpr int kTile = 64;   // rows of the streamed sequence per stage
 constexpr int kStages = 3;  // depth of the rings
-
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Dynamic shared memory of the dq kernel (byte offsets): resident q and do tiles of
 // 64 NW rows and the ring of k and v tiles, all swizzled as TMA writes them; the
@@ -125,14 +136,14 @@ struct DkvSmem {
 // dq pass. Grid (ceil(Tq / (64 NW)), H, B), 128 NW threads, two blocks an SM;
 // warpgroup wg owns query rows 64 wg..64 wg + 63 of the block. Thread 0 issues the
 // TMA loads: q and do once, the k and v tiles kStages - 1 ahead.
-template <int D, int NW>
+template <int D, int NW, bool LSE>
 __global__ void __launch_bounds__(128 * NW, 2)
     attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap do_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ out,
-                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
+                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ rowv,
                        __nv_bfloat16* __restrict__ dq, unsigned char* __restrict__ packed,
                        int tq, int tk, Strides qs_, Strides os_, Strides dos_, Strides dqs_,
                        float c, float scale) {
@@ -173,20 +184,27 @@ __global__ void __launch_bounds__(128 * NW, 2)
   }
 
   // Prologue, two threads per row, half the head dim each: delta = rowsum(do * out);
-  // the row's part of its packed query tile for the dk/dv kernel (q_s, do_s, m c,
-  // delta; zeros past Tq up to the tile's end); the per-row values this kernel
-  // keeps.
+  // the row's part of its packed query tile for the dk/dv kernel (q_s and do_s in
+  // the stats form, mc and delta; zeros past Tq up to the tile's end); the per-row
+  // values this kernel keeps (mc, delta and dq's factor).
   {
     constexpr int HALF = D / 2;
     const int r = tid >> 1, half = tid & 1, row = row0 + r;
     const int nq = (tq + kTile - 1) / kTile;
-    float m = 0.f, il = 0.f, dsum = 0.f;
+    float mc_r = 0.f, il = 0.f, dq_f = 0.f, dsum = 0.f;
     uint4 qs4[HALF / 8], ds4[HALF / 8];
 #pragma unroll
     for (int i = 0; i < HALF / 8; ++i) qs4[i] = ds4[i] = make_uint4(0, 0, 0, 0);
     if (row < tq) {
-      m = stats[bh * tq + row];
-      il = stats[(int64_t)nb * nh * tq + bh * tq + row];
+      if constexpr (LSE) {
+        mc_r = rowv[bh * tq + row] * kLog2e;
+        dq_f = 1.f;
+      } else {
+        const float m = rowv[bh * tq + row];
+        il = rowv[(int64_t)nb * nh * tq + bh * tq + row];
+        mc_r = m * c;
+        dq_f = scale * il;
+      }
       const float cq = scale * il;
       const __nv_bfloat16* qr = q + (int64_t)b * qs_.sb + (int64_t)row * qs_.st +
                                 (int64_t)h * qs_.sh + half * HALF;
@@ -219,25 +237,28 @@ __global__ void __launch_bounds__(128 * NW, 2)
     if (row < nq * kTile) {
       unsigned char* tile = packed + (bh * nq + row / kTile) * P::bytes;
       const int rt = row % kTile;
+      if constexpr (!LSE) {
 #pragma unroll
-      for (int i = 0; i < HALF / 8; ++i) {
-        const int off = cm_offset<D>(rt / 8, half * (HALF / 8) + i) + 16 * (rt % 8);
-        *reinterpret_cast<uint4*>(tile + P::qs + off) = qs4[i];
-        *reinterpret_cast<uint4*>(tile + P::dos + off) = ds4[i];
+        for (int i = 0; i < HALF / 8; ++i) {
+          const int off = cm_offset<D>(rt / 8, half * (HALF / 8) + i) + 16 * (rt % 8);
+          *reinterpret_cast<uint4*>(tile + P::qs + off) = qs4[i];
+          *reinterpret_cast<uint4*>(tile + P::dos + off) = ds4[i];
+        }
       }
       if (half == 0) {
-        reinterpret_cast<float*>(tile + P::mc)[rt] = m * c;
+        reinterpret_cast<float*>(tile + P::mc)[rt] = mc_r;
         reinterpret_cast<float*>(tile + P::delta)[rt] = dsum;
       }
     }
     if (half == 0) {
-      rowf[r] = m * c;
+      rowf[r] = mc_r;
       rowf[L::kRows + r] = dsum;
-      rowf[2 * L::kRows + r] = scale * il;
+      rowf[2 * L::kRows + r] = dq_f;
     }
   }
   __syncthreads();
 
+  const float ds_f = LSE ? scale : 1.f;  // factor on ds before its bf16 rounding
   float mc[2], dl[2], cb[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -288,13 +309,13 @@ __global__ void __launch_bounds__(128 * NW, 2)
     }
     wgmma_wait<0>();
     fence_regs(dp);
-    // ds_u = e (dp - delta)
+    // ds = e (dp - delta) ds_f
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - dl[(i >> 1) & 1];
+    for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * ds_f;
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) acc_to_a(a[kc], s, kc);
 
-    // dq += ds_u @ k
+    // dq += ds @ k
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -325,7 +346,7 @@ __global__ void __launch_bounds__(128 * NW, 2)
 // (TMA), then each stage of the ring (the q and do tiles by TMA, the packed tile by
 // one bulk copy) once the consumers have marked it empty.
 // Neither role waits on a block-wide barrier inside the sweep.
-template <int D, int NW>
+template <int D, int NW, bool LSE>
 __global__ void __launch_bounds__(128 * (NW + 1), 1)
     attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap do_map,
@@ -333,7 +354,7 @@ __global__ void __launch_bounds__(128 * (NW + 1), 1)
                          const __grid_constant__ CUtensorMap v_map,
                          const unsigned char* __restrict__ packed,
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int tq,
-                         int tk, Strides dks_, Strides dvs_, float c) {
+                         int tk, Strides dks_, Strides dvs_, float c, float scale) {
   using L = DkvSmem<D, NW>;
   using P = Packed<D>;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -366,21 +387,25 @@ __global__ void __launch_bounds__(128 * (NW + 1), 1)
         tma_load4(kt + w * L::kTileBytes, &k_map, 0, h, key0 + w * kTile, b, kv_ready);
         tma_load4(vt + w * L::kTileBytes, &v_map, 0, h, key0 + w * kTile, b, kv_ready);
       }
-      const unsigned char* src = packed + ((int64_t)b * nh + h) * nq * P::bytes;
+      // the stats form brings the whole packed tile, the lse form its per-row values
+      constexpr int from = LSE ? P::mc : 0;
+      const unsigned char* src = packed + ((int64_t)b * nh + h) * nq * P::bytes + from;
       for (int i = 0; i < nq; ++i) {
         const int st = i % kStages;
         unsigned char* base = smem + L::ring + st * L::stage;
         if (i >= kStages) mbar_wait(&empty[st], (i / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[st], 2 * L::kTileBytes + P::bytes);
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTileBytes + P::bytes - from);
         tma_load4(base + L::q, &q_map, 0, h, i * kTile, b, &full[st]);
         tma_load4(base + L::dout, &do_map, 0, h, i * kTile, b, &full[st]);
-        bulk_copy_g2s(base + L::packed, src + (int64_t)i * P::bytes, P::bytes, &full[st]);
+        bulk_copy_g2s(base + L::packed + from, src + (int64_t)i * P::bytes, P::bytes - from,
+                      &full[st]);
       }
     }
   } else {
     // ---- consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(NW == 2 ? 232 : 240) : "memory");
     const int g = lane >> 2, t4 = lane & 3;
+    const float ds_f = LSE ? scale : 1.f;
     const unsigned char* kw = kt + wg * L::kTileBytes;  // this warpgroup's 64 keys
     const unsigned char* vw = vt + wg * L::kTileBytes;
     float dk_acc[D / 2], dv_acc[D / 2];
@@ -425,11 +450,14 @@ __global__ void __launch_bounds__(128 * (NW + 1), 1)
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) acc_to_a(ae[kc], s, kc);
 
-      // dv += bf16(e)^T @ do_s, while ds_u^T = e^T (dp^T - delta) is formed
+      // dv += bf16(e)^T @ do_s, while ds^T = e^T (dp^T - delta) ds_f is formed; in the
+      // lse form do_s and q_s are the stage's do and q tiles themselves
       fence_regs(dv_acc);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<D>(dv_acc, ae[kc], desc_mn<D>(pk + P::dos, kc));
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<D>(dv_acc, ae[kc], LSE ? desc_sw_mn<D>(base + L::dout, kc)
+                                             : desc_mn<D>(pk + P::dos, kc));
       wgmma_commit();
       wgmma_wait<1>();  // dp^T has landed
       fence_regs(dp);
@@ -437,15 +465,18 @@ __global__ void __launch_bounds__(128 * (NW + 1), 1)
       for (int n8 = 0; n8 < 8; ++n8)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          dp[4 * n8 + e] = s[4 * n8 + e] * (dp[4 * n8 + e] - ((e & 1) ? d2[n8].y : d2[n8].x));
+          dp[4 * n8 + e] =
+              s[4 * n8 + e] * (dp[4 * n8 + e] - ((e & 1) ? d2[n8].y : d2[n8].x)) * ds_f;
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) acc_to_a(ads[kc], dp, kc);
 
-      // dk += ds_u^T @ q_s
+      // dk += ds^T @ q_s
       fence_regs(dk_acc);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) wgmma_rs<D>(dk_acc, ads[kc], desc_mn<D>(pk + P::qs, kc));
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs<D>(dk_acc, ads[kc], LSE ? desc_sw_mn<D>(base + L::q, kc)
+                                              : desc_mn<D>(pk + P::qs, kc));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -473,59 +504,15 @@ __global__ void __launch_bounds__(128 * (NW + 1), 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A tensor map over a (B, T, H, D) bf16 tensor with element strides st: 64-row boxes
-// of one (batch, head), swizzled by D * 2 bytes; rows past T read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d, Strides st) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.sh * 2, (cuuint64_t)st.st * 2,
-                                 (cuuint64_t)st.sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)d, 1, (cuuint32_t)kTile, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = d == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename K>
-int allow_smem(K kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-template <int D, int NWQ, int NWK>
+template <int D, int NWQ, int NWK, bool LSE>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* stats,
+           const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* rowv,
            __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, unsigned char* packed,
            int b, int tq, int tk, int h, const Strides* st, float c, float scale,
            cudaStream_t s) {
   constexpr int dq_bytes = DqSmem<D, NWQ>::bytes, kv_bytes = DkvSmem<D, NWK>::bytes;
-  static const int attr = allow_smem(attn_bwd_dq_kernel<D, NWQ>, dq_bytes) |
-                          allow_smem(attn_bwd_dkdv_kernel<D, NWK>, kv_bytes);
+  static const int attr = allow_smem(attn_bwd_dq_kernel<D, NWQ, LSE>, dq_bytes) |
+                          allow_smem(attn_bwd_dkdv_kernel<D, NWK, LSE>, kv_bytes);
   if (attr != 0) return attr;
   CUtensorMap qm, dom, km, vm;
   int err = make_map(&qm, q, b, tq, h, D, st[0]);
@@ -533,32 +520,32 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   if (err == 0) err = make_map(&km, k, b, tk, h, D, st[1]);
   if (err == 0) err = make_map(&vm, v, b, tk, h, D, st[2]);
   if (err != 0) return err;
-  attn_bwd_dq_kernel<D, NWQ><<<dim3((tq + 64 * NWQ - 1) / (64 * NWQ), h, b), 128 * NWQ,
-                               dq_bytes, s>>>(qm, dom, km, vm, q, out, dout, stats, dq, packed,
+  attn_bwd_dq_kernel<D, NWQ, LSE><<<dim3((tq + 64 * NWQ - 1) / (64 * NWQ), h, b), 128 * NWQ,
+                               dq_bytes, s>>>(qm, dom, km, vm, q, out, dout, rowv, dq, packed,
                                               tq, tk, st[0], st[3], st[4], st[5], c, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  attn_bwd_dkdv_kernel<D, NWK><<<dim3((tk + 64 * NWK - 1) / (64 * NWK), h, b),
+  attn_bwd_dkdv_kernel<D, NWK, LSE><<<dim3((tk + 64 * NWK - 1) / (64 * NWK), h, b),
                                  128 * (NWK + 1), kv_bytes, s>>>(qm, dom, km, vm, packed, dk, dv,
-                                                                tq, tk, st[6], st[7], c);
+                                                                tq, tk, st[6], st[7], c, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One warpgroup per block where the resident sequence fits one 64-row tile, two
 // otherwise.
-template <int D>
+template <int D, bool LSE>
 int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-             const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* stats,
+             const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* rowv,
              __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, unsigned char* packed,
              int b, int tq, int tk, int h, const Strides* st, float c, float scale,
              cudaStream_t s) {
   if (tq <= 64 && tk <= 64)
-    return launch<D, 1, 1>(q, k, v, out, dout, stats, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
+    return launch<D, 1, 1, LSE>(q, k, v, out, dout, rowv, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
   if (tq <= 64)
-    return launch<D, 1, 2>(q, k, v, out, dout, stats, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
+    return launch<D, 1, 2, LSE>(q, k, v, out, dout, rowv, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
   if (tk <= 64)
-    return launch<D, 2, 1>(q, k, v, out, dout, stats, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
-  return launch<D, 2, 2>(q, k, v, out, dout, stats, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
+    return launch<D, 2, 1, LSE>(q, k, v, out, dout, rowv, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
+  return launch<D, 2, 2, LSE>(q, k, v, out, dout, rowv, dq, dk, dv, packed, b, tq, tk, h, st, c, scale, s);
 }
 
 }  // namespace
@@ -570,10 +557,10 @@ int launch_d(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16
 // returns cudaGetLastError() after them, or cudaErrorInvalidValue for a head_dim
 // the kernels are not instantiated for.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
-                                   const void* out, const void* dout, const void* stats,
+                                   const void* out, const void* dout, const void* rowv,
                                    void* dq, void* dk, void* dv, void* packed, int b,
                                    int tq, int tk, int h, int d, const int* strides, float scale,
-                                   void* stream) {
+                                   int lse_form, void* stream) {
   const float c = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Strides st[8];
@@ -583,15 +570,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* op = static_cast<const __nv_bfloat16*>(out);
   const auto* dop = static_cast<const __nv_bfloat16*>(dout);
-  const auto* sp = static_cast<const float*>(stats);
+  const auto* sp = static_cast<const float*>(rowv);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   auto* pp = static_cast<unsigned char*>(packed);
   switch (d) {
-    case 16: return launch_d<16>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s);
-    case 32: return launch_d<32>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s);
-    case 64: return launch_d<64>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s);
+    case 16:
+      return lse_form ? launch_d<16, true>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s)
+                      : launch_d<16, false>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s);
+    case 32:
+      return lse_form ? launch_d<32, true>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s)
+                      : launch_d<32, false>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s);
+    case 64:
+      return lse_form ? launch_d<64, true>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s)
+                      : launch_d<64, false>(qp, kp, vp, op, dop, sp, dqp, dkp, dvp, pp, b, tq, tk, h, st, c, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

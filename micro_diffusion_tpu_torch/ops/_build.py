@@ -21,8 +21,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_attention_lane", "flash_attention_lane_bwd", "flash_attention", "moe_ffn",
-           "moe_ffn_bwd", "adaln")
+SOURCES = ("flash_attention_lane", "flash_attention_lane_bwd", "moe_ffn", "moe_ffn_bwd", "adaln")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

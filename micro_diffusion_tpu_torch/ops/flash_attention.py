@@ -7,10 +7,10 @@ the ``custom_vjp`` :215/:315). :func:`flash_attention` is a
 ``torch.autograd.Function`` that saves (q, k, v, out, lse), as the JAX rule does.
 On CUDA tensors the forward launches the attention forward kernel of
 ``csrc/flash_attention_lane.cu`` with its logsumexp output, and the backward the
-dq and dk/dv kernels of ``csrc/flash_attention.cu``; on CPU tensors both run
-their plain versions. The JAX kernels write (B, H, T, D) and transpose back, a
-TPU store-layout workaround; the port reads and writes (B, T, H, D) through
-strides. Forward contract (``_fwd_kernel``), per (batch, head):
+dq and dk/dv kernels of ``csrc/flash_attention_lane_bwd.cu`` (K1b/K4b's) in their
+lse form; on CPU tensors both run their plain versions. The JAX kernels write
+(B, H, T, D) and transpose back, a TPU store-layout workaround; the port reads and
+writes (B, T, H, D) through strides. Forward contract (``_fwd_kernel``), per (batch, head):
 
     s = (q k^T in fp32) * scale,  m = rowmax(s),  e = exp(s - m),  l = rowsum(e)
     p = bf16(e / l)                 (normalised before the cast, unlike K1)
@@ -27,16 +27,12 @@ over 256 needs a divisor <= 256 that is a multiple of 128, else ValueError, on
 every device, so both packages accept the same configurations.
 """
 
-import ctypes
-
 import torch
 
-from . import _build
-from .flash_attention_lane import (_check, _check_rows, _default_scale, _needs_grad,
-                                   _on_card, launch_fwd)
+from .flash_attention_lane import (_check, _default_scale, _needs_grad, _on_card, launch_bwd,
+                                   launch_fwd)
 
 HEAD_DIMS = (16, 32, 64)  # the kernels' template instances
-_SRC_BWD = "flash_attention"
 
 
 def chunk(t: int, target: int = 256) -> int:
@@ -109,37 +105,6 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return launch_fwd(flash_attention, q, k, v, scale, lse), lse
 
 
-def _launch_bwd(q, k, v, out, lse, do, scale):
-    """Both backward kernels of ``csrc/flash_attention.cu`` on q's card, one count."""
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q")
-    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
-        do = do.contiguous()  # the cotangent comes in whatever strides autograd made
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, tk, h, d), dtype=v.dtype, device=v.device)
-    if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = lse.contiguous()
-    delta = torch.empty_like(lse)  # filled by the dq kernel, read by the dk/dv kernel
-    strides = (ctypes.c_int * 24)(*(s for x in (q, k, v, out, do, dq, dk, dv)
-                                    for s in x.stride()[:3]))
-    fn = _build.function(_SRC_BWD, "flash_attention_lse_bwd",
-                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
-                         [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, tq, tk, h, d, strides, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
 def flash_attention_bwd(q, k, v, out, lse, do, scale=None):
     """(dq, dk, dv) of the attention at (q, k, v) with the forward's ``out`` and
     ``lse``, for the output cotangent ``do``: the plain version on CPU tensors, the
@@ -148,11 +113,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, scale=None):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, scale)
     _check_card(q, k, v)
-    if out.shape != q.shape or out.dtype != q.dtype or lse.dtype != torch.float32:
-        raise ValueError(f"out {tuple(out.shape)} {out.dtype} / lse {lse.dtype} do not "
-                         "match the forward's")
-    _check_rows("out", out)
-    return _launch_bwd(q, k, v, out, lse, do, scale)
+    return launch_bwd(flash_attention_bwd, q, k, v, out, lse, do, scale, lse=True)
 
 
 class _LseAttention(torch.autograd.Function):

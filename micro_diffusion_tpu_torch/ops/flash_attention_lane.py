@@ -173,19 +173,22 @@ def launch_fwd_stats(counter, q, k, v, scale):
     return launch_fwd(counter, q, k, v, scale, stats=stats), stats
 
 
-def launch_bwd(counter, q, k, v, out, stats, do, scale):
+def launch_bwd(counter, q, k, v, out, stats, do, scale, lse=False):
     """Run both kernels of ``csrc/flash_attention_lane_bwd.cu`` on q's card from the
     forward's ``out`` and ``stats`` and add one to ``counter.launches``; returns
-    (dq, dk, dv)."""
+    (dq, dk, dv). With ``lse``, ``stats`` is the forward's row logsumexp (fp32,
+    (B, H, Tq)) and the kernels compute K5's backward contract
+    (``ops/flash_attention.py``) instead."""
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q")
     if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match q")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if stats.shape != (2, b, h, tq) or stats.dtype != torch.float32:
-        raise ValueError(f"stats {tuple(stats.shape)} {stats.dtype} is not the forward's "
-                         f"(2, {b}, {h}, {tq}) float32")
+    want = (b, h, tq) if lse else (2, b, h, tq)
+    if stats.shape != want or stats.dtype != torch.float32:
+        raise ValueError(f"{'lse' if lse else 'stats'} {tuple(stats.shape)} {stats.dtype} is "
+                         f"not the forward's {want} float32")
     if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
         do = do.contiguous()  # the cotangent comes in whatever strides autograd made
     _check_rows("out", out)
@@ -196,20 +199,22 @@ def launch_bwd(counter, q, k, v, out, stats, do, scale):
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     # what the dq kernel hands the dk/dv kernel: per 64-row query tile the scaled
-    # copies of q and do and two fp32 values per row, 256 d + 512 bytes a tile
+    # copies of q and do (not written in the lse form) and two fp32 values per row,
+    # 256 d + 512 bytes a tile
     packed = torch.empty(b * h * -(-tq // 64) * (256 * d + 512), dtype=torch.uint8,
                          device=q.device)
     strides = (ctypes.c_int * 24)(*(s for x in (q, k, v, out, do, dq, dk, dv)
                                     for s in x.stride()[:3]))
     fn = _build.function(_SRC_BWD, "flash_attention_bwd",
                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
-                         [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p])
+                         [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
                  stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  packed.data_ptr(), b, tq, tk, h, d, strides,
-                 float(scale), stream)
+                 float(scale), int(lse), stream)
     if err != 0:
         raise RuntimeError(f"{counter.__name__} backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -4,10 +4,13 @@ delta from (do, out)) against the exact contract (``flash_attention_lane_bwd_pla
 and against jax.grad of the JAX package's interpret-mode Pallas kernels
 (``flash_attention_lane`` at D = 64, ``flash_attention_bh`` at D = 16 and 32), at a
 ragged key length (77 caption tokens) and 64 query rows; the forward's statistics
-against the row max and row sum computed on their own; and the autograd Function
-saving (out, stats) under every remat policy."""
+against the row max and row sum computed on their own; the autograd Function
+saving (out, stats) under every remat policy; and a plain mirror of the per-row
+formulation that the backward kernels share between K1b/K4b (stats) and K5b (lse)
+against both contracts."""
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from test_torch_remat import _NamedOps
 
 tlane = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
 tbh = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_bh")
+tfa = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention")
 
 TQ, TK = 64, 77
 
@@ -153,3 +157,61 @@ def test_function_saves_out_and_stats_under_remat(policy, monkeypatch):
         assert attn_rerun == {"attn_out", "xattn_out"}
     for a, b_ in zip(ref, got):
         torch.testing.assert_close(a, b_, rtol=1e-6, atol=1e-6)
+
+
+def _shared_kernels_mirror(q, k, v, out, rowv, do, scale, lse_form):
+    """The backward kernels' per-row formulation (csrc/flash_attention_lane_bwd.cu) in
+    plain PyTorch. Per query row the dq kernel's prologue sets the exponent offset mc
+    and the packed copies q_s, do_s; the products then apply one factor to ds before
+    its rounding and one to dq's accumulator:
+
+        form    mc                  q_s                      do_s             ds    dq
+        stats   m * scale * log2 e  bf16(q * scale * inv_l)  bf16(do * inv_l) 1     scale * inv_l
+        lse     lse * log2 e        q                        do               scale 1
+    """
+    dt = q.dtype
+    c = scale * math.log2(math.e)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    qf = q.float().permute(0, 2, 1, 3)                          # (B, H, Tq, D)
+    dof = do.float().permute(0, 2, 1, 3)
+    if lse_form:
+        mc = rowv[..., None] * math.log2(math.e)
+        q_s, do_s, ds_f, dq_f = qf, dof, scale, 1.0
+    else:
+        m, inv_l = rowv[0][..., None], rowv[1][..., None]
+        mc = m * c
+        q_s = (qf * (scale * inv_l)).to(dt).float()
+        do_s = (dof * inv_l).to(dt).float()
+        ds_f, dq_f = 1.0, scale * inv_l
+    e = torch.exp2(s * c - mc)
+    delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bhqd,bkhd->bhqk", dof, v.float())
+    ds = (e * (dp - delta) * ds_f).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bhqd", ds, k.float()) * dq_f
+    dk = torch.einsum("bhqk,bhqd->bkhd", ds, q_s)
+    dv = torch.einsum("bhqk,bhqd->bkhd", e.to(dt).float(), do_s)
+    return dq.permute(0, 2, 1, 3).to(dt), dk.to(dt), dv.to(dt)
+
+
+# Tolerances as test_saved_plain_matches_the_exact_contract: the mirror takes the
+# exponent as one FFMA (s c - mc) where the plain versions subtract first, so fp32
+# agrees to rounding (1e-5 of the largest entry) and bf16 to a few ulps of it.
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("form", ["stats", "lse"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_shared_backward_per_row_values_match_both_contracts(d, form, dtype, tol):
+    """The stats form against K1b/K4b's plain version (flash_attention_lane_bwd_saved_plain),
+    the lse form against K5b's contract (flash_attention_bwd_plain), from each
+    forward's own out and saved row values."""
+    q, k, v, do = _inputs(d, dtype=dtype)
+    scale = d**-0.5
+    if form == "lse":
+        out, rowv = tfa.flash_attention_plain(q, k, v)
+        ref = tfa.flash_attention_bwd_plain(q, k, v, out, rowv, do)
+    else:
+        out, rowv = tlane.flash_attention_lane_stats_plain(q, k, v)
+        ref = tlane.flash_attention_lane_bwd_saved_plain(q, k, v, out, rowv, do)
+    got = _shared_kernels_mirror(q, k, v, out, rowv, do, scale, form == "lse")
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _scaled_err(g, r) <= tol, name

@@ -323,7 +323,8 @@ def test_flash_attention_lse_kernels_match_plain(b, tq, tk, h, d):
     """K5 forward (out and the row logsumexp) and backward at XL stage-2 shapes
     (mb 64), the 512px ones, other head dims, odd head counts and ragged lengths;
     k and v strided views of one packed tensor. lse to 1e-3 absolute (fp32 sums of
-    the same exponentials in another order)."""
+    the same exponentials in another order). The backward runs K1b/K4b's kernels in
+    their lse form; two calls are bitwise equal."""
     gen = _card()
     q = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
     kv = torch.randn(b, tk, 2, h * d, generator=gen, device="cuda").bfloat16()
@@ -332,9 +333,11 @@ def test_flash_attention_lse_kernels_match_plain(b, tq, tk, h, d):
     before = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
     out, lse = tfa._forward(q, k, v, d**-0.5)
     got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
     assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + 2)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     ref, ref_lse = tfa.flash_attention_plain(q, k, v)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= TOL
@@ -366,3 +369,36 @@ def test_flash_attention_lse_refuses_what_it_does_not_take():
     torch.cuda.synchronize()
     assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("tq", [1, 64, 65, 77, 128, 129, 1024])
+def test_attention_forward_at_the_tiling_edges(tq, d):
+    """The one forward kernel at each Tk of (1, 63, 64, 77, 128, 1024): through the
+    lane wrapper (K1, D = 64) or the bh one (K4) with the row statistics, and through
+    K5's with the logsumexp; k and v strided views of one packed tensor. out, stats
+    and lse against the plain versions, each bitwise equal across two calls."""
+    gen = _card()
+    b, h = 2, 2
+    mod = tlane if d == 64 else tbh
+    for tk in (1, 63, 64, 77, 128, 1024):
+        q = torch.randn(b, tq, h, d, generator=gen, device="cuda").bfloat16()
+        kv = torch.randn(b, tk, 2, h * d, generator=gen, device="cuda").bfloat16()
+        k, v = kv[:, :, 0].view(b, tk, h, d), kv[:, :, 1].view(b, tk, h, d)
+        out, stats = mod._forward_stats(q, k, v, d**-0.5)
+        out2, stats2 = mod._forward_stats(q, k, v, d**-0.5)
+        o5, lse = tfa._forward(q, k, v, d**-0.5)
+        o52, lse2 = tfa._forward(q, k, v, d**-0.5)
+        torch.cuda.synchronize()
+        what = f"tq {tq} tk {tk} d {d}"
+        assert torch.equal(out, out2) and torch.equal(stats, stats2), what
+        assert torch.equal(o5, o52) and torch.equal(lse, lse2), what
+        ref, ref_stats = tlane.flash_attention_lane_stats_plain(q, k, v)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL, what
+        assert _rel_err(out, ref) <= TOL, what
+        assert max(_stats_err(stats, ref_stats)) <= STATS_TOL, what
+        ref5, ref_lse = tfa.flash_attention_plain(q, k, v)
+        assert (o5.float() - ref5.float()).abs().max().item() <= TOL, what
+        assert _rel_err(o5, ref5) <= TOL, what
+        assert (lse - ref_lse).abs().max().item() <= 1e-3, what

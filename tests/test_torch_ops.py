@@ -4,6 +4,7 @@ runs XLA or the Pallas kernel in interpret mode."""
 
 import importlib
 import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import torch
 from micro_diffusion_tpu.ops import attention as jattention
 from micro_diffusion_tpu.ops import flash_attention_lane as jlane
 from micro_diffusion_tpu.ops import moe_ffn as jmoe
+from micro_diffusion_tpu_torch.ops import _build
 from micro_diffusion_tpu_torch.ops import attention as tattention
 
 tlane = importlib.import_module("micro_diffusion_tpu_torch.ops.flash_attention_lane")
@@ -118,3 +120,10 @@ def test_unported_attention_impls_raise():
     q300 = torch.zeros(1, 300, 1, 16)
     with pytest.raises(ValueError, match="flash_attention"):
         tattention.dot_product_attention(q300, q300, q300, impl="flash_bthd")
+
+
+def test_build_sources_are_the_csrc_files():
+    """ops/_build.py builds every CUDA source under csrc/ and names no other."""
+    on_disk = {f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")}
+    assert sorted(_build.SOURCES) == sorted(on_disk)
+    assert len(set(_build.SOURCES)) == len(_build.SOURCES)

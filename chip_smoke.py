@@ -14,7 +14,11 @@ Phases, each of which fails the run on a failed check:
                (microbatch 256) and the 512px ones, with SDPA's backward as the
                attention yardstick; the attention backwards (K1b, K4b) from the
                kernel forward's out and row statistics, two calls bitwise equal,
-               their deviation from the exact TPU contract logged.
+               their deviation from the exact TPU contract logged; the MoE
+               backwards (K2b, K3b) two calls bitwise equal. Beside every MoE row
+               the time of the cuBLAS chain bmm -> GELU -> bmm (and its autograd
+               backward) on the same inputs: a chain of library calls, for
+               context (library_chain_ms), which the port never runs.
      The fused adaLN LayerNorm+modulate kernel (K6) likewise at every shape the
                trainer path runs (XL stage 1, the Tiny round trip) and one 512px
                shape (no PyTorch call computes it: no library yardstick).
@@ -340,9 +344,37 @@ def check_moe(shape, gen, n=8, e=8):
         raise AssertionError(f"moe_ffn {shape}: max abs err {err} > {MOE_TOL}")
     ms = time_ms(lambda: mf.moe_ffn(xg, w1, w2))
     plain_ms = time_ms(lambda: mf.moe_ffn_plain(xg, w1, w2), iters=5)
+    chain_ms = time_ms(lambda: mf._moe_ffn_ref(xg, w1, w2))
     bound_ms, by = bound(*moe_flops_bytes(n, e, k, d, f))
     return dict(n=n, e=e, k=k, d=d, f=f, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+                bound_ms=bound_ms, bound_by=by, library_ms=None, library_chain_ms=chain_ms)
+
+
+def moe_bwd_row(bwd, plain, chain, xg, w1, w2, do, iters, what):
+    """A MoE backward (``bwd``) against its plain version at BWD_TOL and bitwise
+    equal across two calls; its time, the plain version's, and the library chain's
+    (``chain``: bmm -> GELU -> bmm through autograd) on the same inputs."""
+    import torch
+
+    got = bwd(xg, w1, w2, do)
+    again = bwd(xg, w1, w2, do)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = plain(xg, w1, w2, do)
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    if not (deterministic and all(math.isfinite(e_) and e_ <= BWD_TOL for e_ in errs)):
+        raise AssertionError(f"{what}: rel errs (dx, dw1, dw2) {errs} > {BWD_TOL} or two "
+                             f"calls differ (bitwise equal: {deterministic})")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    del got, again, ref
+    ms = time_ms(lambda: bwd(xg, w1, w2, do), iters=iters)
+    plain_ms = time_ms(lambda: plain(xg, w1, w2, do), iters=2, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (xg, w1, w2)]
+    out = chain(*leaves)
+    chain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                       iters=iters)
+    return dict(max_abs_err=err, max_rel_err=max(errs), bitwise_repeatable=deterministic,
+                ms=ms, plain_ms=plain_ms, library_ms=None, library_chain_ms=chain_ms)
 
 
 def attn_bwd_row(mod, bwd, plain, shape, gen, iters):
@@ -401,20 +433,10 @@ def check_moe_bwd(shape, gen):
     n, e, k, d, f = shape
     xg, w1, w2 = moe_case(k, d, f, gen, n, e)
     do = torch.randn(n, e, k, d, generator=gen, device="cuda").bfloat16()
-    got = mf.moe_ffn_bwd(xg, w1, w2, do)
-    torch.cuda.synchronize()
-    ref = mf.moe_ffn_bwd_plain(xg, w1, w2, do)
-    errs = [rel_err(g, r) for g, r in zip(got, ref)]
-    if not all(math.isfinite(e_) and e_ <= BWD_TOL for e_ in errs):
-        raise AssertionError(f"moe_ffn backward {shape}: rel errs (dx, dw1, dw2) {errs} "
-                             f"> {BWD_TOL}")
-    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-    del got, ref
-    ms = time_ms(lambda: mf.moe_ffn_bwd(xg, w1, w2, do), iters=10)
-    plain_ms = time_ms(lambda: mf.moe_ffn_bwd_plain(xg, w1, w2, do), iters=3, warmup=1)
+    r = moe_bwd_row(mf.moe_ffn_bwd, mf.moe_ffn_bwd_plain, mf._moe_ffn_ref, xg, w1, w2, do,
+                    10, f"moe_ffn backward {shape}")
     bound_ms, by = bound(*moe_bwd_flops_bytes(n, e, k, d, f))
-    return dict(n=n, e=e, k=k, d=d, f=f, max_abs_err=err, max_rel_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return dict(n=n, e=e, k=k, d=d, f=f, **r, bound_ms=bound_ms, bound_by=by)
 
 
 def check_adaln(shape, gen):
@@ -462,9 +484,10 @@ def check_em(shape, gen):
         raise AssertionError(f"moe_ffn_expert_major {shape}: max abs err {err} > {MOE_TOL}")
     ms = time_ms(lambda: mf.moe_ffn_expert_major(xg, w1, w2), iters=10)
     plain_ms = time_ms(lambda: mf.moe_ffn_expert_major_plain(xg, w1, w2), iters=3, warmup=1)
+    chain_ms = time_ms(lambda: mf._moe_ffn_em_ref(xg, w1, w2), iters=10)
     bound_ms, by = bound(*em_flops_bytes(e, m, d, f))
     return dict(e=e, m=m, d=d, f=f, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+                bound_ms=bound_ms, bound_by=by, library_ms=None, library_chain_ms=chain_ms)
 
 
 def check_em_bwd(shape, gen):
@@ -476,21 +499,11 @@ def check_em_bwd(shape, gen):
     xg, w1, w2 = moe_case(m, d, f, gen, n=1, e=e)
     xg = xg[0]
     do = torch.randn(e, m, d, generator=gen, device="cuda").bfloat16()
-    got = mf.moe_ffn_expert_major_bwd(xg, w1, w2, do)
-    torch.cuda.synchronize()
-    ref = mf.moe_ffn_expert_major_bwd_plain(xg, w1, w2, do)
-    errs = [rel_err(g, r) for g, r in zip(got, ref)]
-    if not all(math.isfinite(e_) and e_ <= BWD_TOL for e_ in errs):
-        raise AssertionError(f"moe_ffn_expert_major backward {shape}: rel errs (dx, dw1, "
-                             f"dw2) {errs} > {BWD_TOL}")
-    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-    del got, ref
-    ms = time_ms(lambda: mf.moe_ffn_expert_major_bwd(xg, w1, w2, do), iters=5)
-    plain_ms = time_ms(lambda: mf.moe_ffn_expert_major_bwd_plain(xg, w1, w2, do), iters=2,
-                       warmup=1)
+    r = moe_bwd_row(mf.moe_ffn_expert_major_bwd, mf.moe_ffn_expert_major_bwd_plain,
+                    mf._moe_ffn_em_ref, xg, w1, w2, do, 5,
+                    f"moe_ffn_expert_major backward {shape}")
     bound_ms, by = bound(*em_bwd_flops_bytes(e, m, d, f))
-    return dict(e=e, m=m, d=d, f=f, max_abs_err=err, max_rel_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return dict(e=e, m=m, d=d, f=f, **r, bound_ms=bound_ms, bound_by=by)
 
 
 def check_bh(shape, gen):
@@ -1717,9 +1730,10 @@ def summarize(name, source, replaces, per_shape, path_counts, launches, key, flo
     rows = {key(r): r for r in per_shape}
     tot = collections.defaultdict(float)
     lib_known = True
+    chain = bool(per_shape) and all("library_chain_ms" in r for r in per_shape)
     for shape, count in path_counts.items():
         r = rows[shape]
-        for f in ("ms", "plain_ms", "bound_ms"):
+        for f in ("ms", "plain_ms", "bound_ms") + (("library_chain_ms",) if chain else ()):
             tot[f] += count * r[f]
         if r["library_ms"] is None:
             lib_known = False
@@ -1727,7 +1741,7 @@ def summarize(name, source, replaces, per_shape, path_counts, launches, key, flo
             tot["library_ms"] += count * r["library_ms"]
     flops = sum(c * flops_bytes(*s)[0] for s, c in path_counts.items())
     nbytes = sum(c * flops_bytes(*s)[1] for s, c in path_counts.items())
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
         "max_abs_err": max((r["max_abs_err"] for r in per_shape), default=None),
@@ -1737,6 +1751,9 @@ def summarize(name, source, replaces, per_shape, path_counts, launches, key, flo
         "per": per,
         "shapes": per_shape,
     }
+    if chain:  # the MoE kernels: a chain of library calls for context, not one call
+        entry["library_chain_ms"] = tot["library_chain_ms"]
+    return entry
 
 
 def main():
@@ -1764,7 +1781,8 @@ def main():
     log(f"[device] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    name.startswith("moe") and "entry function" in line):
                 log(f"[ptxas {name}] {line.strip()}")
 
     # ---- 2. kernels

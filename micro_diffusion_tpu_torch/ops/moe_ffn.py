@@ -27,6 +27,12 @@ the port. Expert-major rows are sample-major rows with n = 1 and k = m, so its
 kernels are the K2/K2b sources driven through their own entry points
 (``moe_ffn_em_fwd``, ``moe_ffn_em_bwd``) with that layout; its wrappers keep their
 own launch counters.
+
+On the card both directions are wgmma GEMMs fed by TMA rings (``csrc/moe_gemm.cuh``):
+the forward is two launches with the (e, rows, f) bf16 hidden between them, the
+backward four (a; dh with da and h in its epilogue; dx; dw1 and dw2), with a, da and
+h in an (e, rows, f) scratch. The wrappers allocate those buffers; each call counts
+once.
 """
 
 import ctypes
@@ -38,7 +44,6 @@ from . import _build
 
 _SRC = "moe_ffn"
 _SRC_BWD = "moe_ffn_bwd"
-_KERNEL_MAX_D = 1024  # the kernels keep a d-wide fp32 accumulator in registers
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -98,9 +103,6 @@ def _check(xg, w1, w2):
     for name, x in (("xg", xg), ("w1", w1), ("w2", w2)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if d > _KERNEL_MAX_D:
-        raise NotImplementedError(
-            f"moe_ffn kernel holds d <= {_KERNEL_MAX_D} in registers; got d={d}")
 
 
 def _on_card(x):
@@ -117,12 +119,13 @@ def _forward(xg, w1, w2):
     n, e, k, d = xg.shape
     f = w1.shape[-1]
     out = torch.empty_like(xg)
-    if out.numel() == 0:
-        return out
-    fn = _build.function(_SRC, "moe_ffn_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    if out.numel() == 0 or f == 0:
+        return out.zero_()
+    hidden = torch.empty((e, n * k, f), dtype=torch.bfloat16, device=xg.device)
+    fn = _build.function(_SRC, "moe_ffn_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = fn(xg.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+        err = fn(xg.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
                  n, e, k, d, f, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn kernel launch failed: CUDA error {err}")
@@ -146,7 +149,8 @@ def moe_ffn_bwd(xg, w1, w2, dout):
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     if dx.numel() == 0 or f == 0:
         return dx.zero_(), dw1.zero_(), dw2.zero_()
-    # da and h, (e, n*k, f) bf16 each: written by the dx pass, read by the dw pass
+    # da and h (a before it), (e, n*k, f) bf16 each: written by the first GEMMs, read by
+    # the others
     scratch = torch.empty((2, e, n * k, f), dtype=torch.bfloat16, device=xg.device)
     fn = _build.function(_SRC_BWD, "moe_ffn_bwd",
              [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -252,14 +256,15 @@ def _forward_em(xg, w1, w2):
     e, m, d = xg.shape
     f = w1.shape[-1]
     out = torch.empty_like(xg)
-    if out.numel() == 0:
-        return out
+    if out.numel() == 0 or f == 0:
+        return out.zero_()
+    hidden = torch.empty((e, m, f), dtype=torch.bfloat16, device=xg.device)
     fn = _build.function(_SRC, "moe_ffn_em_fwd",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = fn(xg.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), e, m, d, f,
-                 stream)
+        err = fn(xg.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), hidden.data_ptr(),
+                 e, m, d, f, stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn_expert_major kernel launch failed: CUDA error {err}")
     moe_ffn_expert_major.launches += 1
@@ -282,7 +287,8 @@ def moe_ffn_expert_major_bwd(xg, w1, w2, dout):
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     if dx.numel() == 0 or f == 0:
         return dx.zero_(), dw1.zero_(), dw2.zero_()
-    # da and h, (e, m, f) bf16 each: written by the dx pass, read by the dw pass
+    # da and h (a before it), (e, m, f) bf16 each: written by the first GEMMs, read by
+    # the others
     scratch = torch.empty((2, e, m, f), dtype=torch.bfloat16, device=xg.device)
     fn = _build.function(_SRC_BWD, "moe_ffn_em_bwd",
                          [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])

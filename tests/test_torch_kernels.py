@@ -153,8 +153,10 @@ def test_moe_ffn_bwd_kernel_matches_plain(k, d, f):
     do = torch.randn(n, e, k, d, generator=gen, device="cuda").bfloat16()
     before = tmoe.moe_ffn_bwd.launches
     got = tmoe.moe_ffn_bwd(xg, w1, w2, do)
+    again = tmoe.moe_ffn_bwd(xg, w1, w2, do)
     torch.cuda.synchronize()
-    assert tmoe.moe_ffn_bwd.launches == before + 1
+    assert tmoe.moe_ffn_bwd.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     for g, r in zip(got, tmoe.moe_ffn_bwd_plain(xg, w1, w2, do)):
         assert _rel_err(g, r) <= BWD_TOL
 
@@ -245,12 +247,53 @@ def test_moe_ffn_expert_major_kernels_match_plain(e, m, d, f):
     before = tmoe.moe_ffn_expert_major.launches, tmoe.moe_ffn_expert_major_bwd.launches
     out = tmoe.moe_ffn_expert_major(xg, w1, w2)
     got = tmoe.moe_ffn_expert_major_bwd(xg, w1, w2, do)
+    again = tmoe.moe_ffn_expert_major_bwd(xg, w1, w2, do)
     torch.cuda.synchronize()
     assert (tmoe.moe_ffn_expert_major.launches, tmoe.moe_ffn_expert_major_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + 2)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     ref = tmoe.moe_ffn_expert_major_plain(xg, w1, w2)
     assert (out.float() - ref.float()).abs().max().item() <= TOL
     for g, r in zip(got, tmoe.moe_ffn_expert_major_bwd_plain(xg, w1, w2, do)):
+        assert _rel_err(g, r) <= BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,n,e,k,d,f", [
+    ("em", 1, 2, 48, 128, 768), ("em", 1, 3, 1040, 512, 768), ("em", 1, 2, 1040, 768, 512),
+    ("em", 1, 2, 48, 1024, 768), ("em", 1, 1, 16, 256, 256),
+    ("moe", 4, 2, 48, 1024, 768), ("moe", 3, 2, 48, 128, 256), ("moe", 5, 3, 16, 768, 768),
+    ("moe", 2, 2, 32, 512, 1024), ("moe", 3, 2, 80, 384, 512), ("moe", 2, 2, 192, 640, 256),
+])
+def test_moe_kernels_at_ragged_and_odd_shapes(layout, n, e, k, d, f):
+    """The expert FFN kernels off the 128-row grid: expert-major m = 48 and 1040
+    (row tiles past the end, read as zeros and not stored), sample-major runs of k =
+    48 and 80 (16-row boxes), 16 and 32 (boxes spanning runs) and 192 rows, d from 128
+    to 1024 (128- and 256-wide output tiles), f from 256. Forward and backward against
+    the plain versions, the backward twice and bitwise equal, one count per call."""
+    gen = _card()
+    shape = (e, k, d) if layout == "em" else (n, e, k, d)
+    xg = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    w1 = (0.02 * torch.randn(e, d, f, generator=gen, device="cuda")).bfloat16()
+    w2 = (0.02 * torch.randn(e, f, d, generator=gen, device="cuda")).bfloat16()
+    do = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    if layout == "em":
+        fwd, bwd = tmoe.moe_ffn_expert_major, tmoe.moe_ffn_expert_major_bwd
+        fwd_plain, bwd_plain = tmoe.moe_ffn_expert_major_plain, tmoe.moe_ffn_expert_major_bwd_plain
+    else:
+        fwd, bwd = tmoe.moe_ffn, tmoe.moe_ffn_bwd
+        fwd_plain, bwd_plain = tmoe.moe_ffn_plain, tmoe.moe_ffn_bwd_plain
+    before = fwd.launches, bwd.launches
+    out = fwd(xg, w1, w2)
+    got = bwd(xg, w1, w2, do)
+    again = bwd(xg, w1, w2, do)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert out.shape == xg.shape and out.dtype == torch.bfloat16
+    assert (out.float() - fwd_plain(xg, w1, w2).float()).abs().max().item() <= TOL
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for g, r in zip(got, bwd_plain(xg, w1, w2, do)):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
         assert _rel_err(g, r) <= BWD_TOL
 
 

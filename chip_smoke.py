@@ -32,6 +32,13 @@ Phases, each of which fails the run on a failed check:
                layers perturbed): one CFG forward through the kernels against the
                same forward through the plain versions, then generate() of 4
                prompts, 30 Heun steps, CFG 5.0, with the launch counts checked.
+     serve   - the prompt -> image path at random weights from the seed: the DFN5B
+               CLIP-H text tower and the SDXL VAE (bf16 compute), a CLIP tokenizer
+               over a BPE vocabulary the script learns into a temp dir; at 256px
+               generate(prompt=[4 captions]) with the [slice] model -> (4, 3, 256,
+               256) images in [0, 1], the same launch counts as the latents-only
+               call, the time of each stage per image; one full-width T5-v1.1-XXL
+               forward (4 x 120 ids with a mask, bf16).
   4. train   - the MicroDiT-XL stage-1 train step at full width and depth (mask
                0.75, microbatch 256, AdamW 2.4e-4 / wd 0.1 / clip 0.25, cosine with
                2500 warmup steps): one microbatch's loss and whole gradient through
@@ -64,7 +71,9 @@ Phases, each of which fails the run on a failed check:
   8. stage4  - the same for stage 4 (mask 0, mb 16, K = 16), and one microbatch's
                loss and whole gradient through the kernels against the plain path.
      sample512 - a 30-step CFG-5 generate() of 2 prompts at 512px with the stage-4
-               model, launch counts checked.
+               model, launch counts checked; then generate(prompt=[2 captions]) ->
+               (2, 3, 512, 512) with the same counts, one VAE encode of 2 seeded
+               512px images, and one 512px decode in bf16 against fp32.
   9. chain   - MicroDiT-Tiny through the stage handoffs: stage 2 (256px) saves,
                stage 3 loads its weights only across the pos_embed change (1024
                tokens) and saves, stage 4 loads stage 3's full state (bitwise
@@ -170,6 +179,18 @@ STAGE2_STEPS = 4  # fit steps of each [stage2] run (one epoch of the 1024-sample
 REMAT_POLICIES = ("full", "dots", "attn_moe", "dots_attn_moe")
 RECIPE_BATCHES = (250000, 30000, 50000, 55000)  # batches of stages 1-4 (configs/res_*.yaml:
                                                 # 250k, then to 280k, 50k, 55k more)
+CLIP_NAME = "openclip:hf-hub:apple/DFN5B-CLIP-ViT-H-14-378"  # 49408 x 1024, 24 layers
+T5_NAME = "DeepFloyd/t5-v1_1-xxl"  # d_model 4096, 24 layers, 64 heads, d_ff 10240
+SERVE_CAPTIONS = [  # the prompts of the prompt -> image calls; also the BPE corpus
+    "a photograph of an astronaut riding a horse on the moon",
+    "a red fox sitting in the snow, watercolor painting",
+    "two cups of coffee on a wooden table next to a window",
+    "a futuristic city skyline at sunset, highly detailed, 4k",
+]
+BPE_MERGES = 200  # merges of the vocabulary the script learns (no released one here)
+VAE_TOL = 3e-2  # relative L2 of a 512px decode, bf16 vs fp32 compute on the same weights
+                # and latents: ~30 convolutions each round to bf16 (2^-8 of an entry);
+                # 1.5e-2 at 64px on the CPU
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OVERLAY = os.path.join(ROOT, "micro_diffusion_tpu_torch", "configs", "h100_1gpu")
 PROMPTS_FILE = os.path.join(ROOT, "configs", "eval_prompts.yaml")  # the recipe's, cwd-free
@@ -748,7 +769,7 @@ def perturb_zero_init(module, gen, std=0.02):
                 p.normal_(0.0, std, generator=gen)
 
 
-def run_slice(steps, prompts):
+def run_slice(steps, prompts, enc):
     import torch
     from micro_diffusion_tpu_torch.models.diffusion import create_latent_diffusion
 
@@ -809,10 +830,16 @@ def run_slice(steps, prompts):
         raise AssertionError("latents not finite")
     if launches["attention"] != want_attn or launches["moe"] != want_moe:
         raise AssertionError(f"launch counts {launches} != {want_attn}, {want_moe}")
+    # the same sampler behind the prompt -> image path: the same launches. Before the
+    # profiled forward, as the latents-only call, so that the two rates compare: the
+    # host-bound sampler ran slower once torch.profiler had traced a forward (PERF.md §5)
+    serve = prompt_generate(model, enc, SERVE_CAPTIONS[:prompts], steps,
+                            launch_dict(attention=want_attn, moe=want_moe), "[serve 256px]")
+    del serve["latents"]
     profile_forward(model, x, sigma, y)
     return dict(attn_shapes=attn_shapes, moe_shapes=moe_shapes, launches=launches,
                 rel_l2=rel, sampler_ms=wall * 1e3, img_per_s=prompts / wall,
-                latents_std=latents.float().std().item())
+                latents_std=latents.float().std().item(), serve=serve)
 
 
 def profile_forward(model, x, sigma, y, top=12, label="XL CFG forward (B=8)"):
@@ -844,6 +871,195 @@ def profile_forward(model, x, sigma, y, top=12, label="XL CFG forward (B=8)"):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:110]}")
+
+
+# ------------------------------------------------------------------ serve
+
+
+class StageTimes:
+    """Times the prompt -> image stages of one ``generate`` call (tokenize, text
+    encode, sampler, VAE decode): each wrapped call runs between
+    torch.cuda.synchronize() boundaries; keeps the sampler's latents."""
+
+    def __init__(self, model):
+        self.sites = [(model.tokenizer, "tokenize", "tokenize"),
+                      (model.text_encoder, "encode", "text_encode"),
+                      (model, "edm_sampler_loop", "sampler"), (model.vae, "decode", "decode")]
+        self.ms = {stage: 0.0 for _, _, stage in self.sites}
+        self.latents = None
+
+    def _wrap(self, fn, stage):
+        import torch
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[stage] += (time.perf_counter() - t0) * 1e3
+            if stage == "sampler":
+                self.latents = out
+            return out
+        return timed
+
+    def __enter__(self):
+        for obj, name, stage in self.sites:
+            setattr(obj, name, self._wrap(getattr(obj, name), stage))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, _ in self.sites:
+            delattr(obj, name)  # the instance's wrapper; the class's method is back
+
+
+def build_encoders(tok_dir):
+    """The DFN5B CLIP-H text tower (bf16 compute) and the SDXL VAE (128/256/512/512,
+    2 layers a block, 4 latent channels, bf16 compute as the factory gives it) at
+    random weights from the script's seed, and a CLIP tokenizer over a BPE
+    vocabulary learned from SERVE_CAPTIONS into ``tok_dir``."""
+    import torch
+    from micro_diffusion_tpu_torch.models.text_encoders import (UniversalTextEncoder,
+                                                                UniversalTokenizer)
+    from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+    from micro_diffusion_tpu_torch.utils.clip_bpe import write_bpe_vocab
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    write_bpe_vocab(SERVE_CAPTIONS, tok_dir, num_merges=BPE_MERGES)
+    enc = dict(text_encoder=UniversalTextEncoder(CLIP_NAME, dtype="bfloat16", pretrained=False,
+                                                 device="cuda", generator=gen),
+               vae=AutoencoderKL(compute_dtype=torch.bfloat16, device="cuda").init_weights(gen),
+               tokenizer=UniversalTokenizer(CLIP_NAME, tok_dir))
+    torch.cuda.synchronize()
+    log(f"[serve] CLIP-H text tower ({sum(p.numel() for p in enc['text_encoder'].parameters())} "
+        f"params) and SDXL VAE ({sum(p.numel() for p in enc['vae'].parameters())} params) "
+        f"built on cuda at random weights, BPE vocabulary of {BPE_MERGES} merges: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return enc
+
+
+def prompt_generate(model, enc, prompts, steps, want, label):
+    """generate(prompt=...) with the encoders attached: images (B, 3, 8 latent_res,
+    8 latent_res) fp32, finite, in [0, 1], not constant; the kernel launch counts
+    equal ``want`` (the encoders and the VAE launch none); per-image stage times."""
+    import torch
+
+    for key, handle in enc.items():
+        setattr(model, key, handle)
+    side = 8 * model.latent_res
+    # warm-up of the encoder and the VAE at these shapes (cuBLAS / cuDNN choices),
+    # so that the timed call's stages are steady-state; the sampler is warm already
+    model.encode_prompts(prompts)
+    model.decode_latents(torch.zeros(len(prompts), 4, model.latent_res, model.latent_res,
+                                     device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    with StageTimes(model) as st:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = model.generate(prompt=prompts, guidance_scale=5.0, num_inference_steps=steps,
+                                seed=SEED)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(prompts)
+    per = {stage: ms / n for stage, ms in st.ms.items()}
+    out = dict(wall_ms=wall, img_per_s=n / (wall / 1e3), ms_per_image=per,
+               decode_share=st.ms["decode"] / wall, peak_gib=peak / 2**30,
+               launches=got, images_std=images.std().item(), latents=st.latents)
+    log(f"{label} generate(prompt=[{n} captions]), {steps} Heun steps, CFG 5.0 -> "
+        f"{tuple(images.shape)} {images.dtype}: {wall:.1f} ms, {out['img_per_s']:.4f} img/s "
+        f"end to end; per image tokenize {per['tokenize']:.3f} ms, text encode "
+        f"{per['text_encode']:.2f} ms, sampler {per['sampler']:.1f} ms, VAE decode "
+        f"{per['decode']:.2f} ms (decode share {out['decode_share']:.4f}); peak "
+        f"{out['peak_gib']:.2f} GiB; launches {got}, expected {want}")
+    finite = bool(torch.isfinite(images).all())
+    if (tuple(images.shape) != (n, 3, side, side) or images.dtype != torch.float32
+            or not finite or images.min().item() < 0.0 or images.max().item() > 1.0
+            or out["images_std"] <= 0.0):
+        raise AssertionError(f"{label} images: shape {tuple(images.shape)} {images.dtype}, "
+                             f"finite {finite}, range [{images.min().item()}, "
+                             f"{images.max().item()}], std {out['images_std']}")
+    if got != want:
+        raise AssertionError(f"{label} prompt generate launch counts {got} != {want}")
+    return out
+
+
+def run_serve512(model, enc, want):
+    """The 512px prompt -> image path with the stage-4 model; one VAE encode of 2
+    seeded 512px images; one 512px decode in bf16 and in fp32 on the same latents
+    and weights (cuDNN's bf16 convolutions against fp32 ones)."""
+    import torch
+    from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+
+    out = prompt_generate(model, enc, SERVE_CAPTIONS[:SAMPLE512_PROMPTS], STEPS, want,
+                          "[serve 512px]")
+    vae = enc["vae"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    images = torch.rand(SAMPLE512_PROMPTS, 3, 512, 512, generator=gen, device="cuda") * 2 - 1
+    vae.encode(images, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = vae.encode(images, generator=gen)
+    torch.cuda.synchronize()
+    out["encode_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / SAMPLE512_PROMPTS
+    if tuple(z.shape) != (SAMPLE512_PROMPTS, 4, 64, 64) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"512px VAE encode: shape {tuple(z.shape)}, finite "
+                             f"{bool(torch.isfinite(z).all())}")
+    vae32 = AutoencoderKL(compute_dtype=torch.float32, device="cuda")
+    vae32.load_state_dict(vae.state_dict())
+    lat = out.pop("latents") / model.latent_scale
+    bf16 = vae.decode(lat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fp32 = vae32.decode(lat)
+    torch.cuda.synchronize()
+    out["fp32_decode_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / SAMPLE512_PROMPTS
+    out["vae_bf16_rel_l2"] = ((bf16 - fp32).norm() / fp32.norm()).item()
+    log(f"[serve 512px] VAE encode {tuple(z.shape)}: {out['encode_ms_per_image']:.2f} ms per "
+        f"image; decode bf16 vs fp32 on the same latents: rel L2 {out['vae_bf16_rel_l2']:.3e} "
+        f"(tol {VAE_TOL}), fp32 decode {out['fp32_decode_ms_per_image']:.2f} ms per image")
+    if not out["vae_bf16_rel_l2"] <= VAE_TOL:
+        raise AssertionError(f"512px decode bf16 vs fp32 rel L2 {out['vae_bf16_rel_l2']}")
+    del vae32, bf16, fp32
+    return out
+
+
+def run_t5():
+    """One full-width DeepFloyd/t5-v1_1-xxl forward at random weights (HF T5's init
+    scales) in bf16: 4 x 120 seeded ids with a padding mask -> (4, 1, 120, 4096),
+    finite; the encoder is freed afterwards."""
+    import torch
+    from micro_diffusion_tpu_torch.models.text_encoders import UniversalTextEncoder
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = UniversalTextEncoder(T5_NAME, dtype="bfloat16", pretrained=False, device="cuda",
+                               generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in enc.parameters())
+    ids = torch.randint(2, 32128, (4, 120), generator=gen, device="cuda")
+    mask = (torch.arange(120, device="cuda")[None] < torch.tensor(
+        [[120], [77], [30], [5]], device="cuda")).long()
+    ids = ids * mask
+    enc.encode(ids, attention_mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, _ = enc.encode(ids, attention_mask=mask)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(emb).all())
+    log(f"[serve t5] T5-v1.1-XXL ({n_params} params) built on cuda in {build_s:.1f} s; "
+        f"forward of 4 x 120 ids in bf16: {tuple(emb.shape)} {emb.dtype}, finite {finite}, "
+        f"{ms:.1f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if tuple(emb.shape) != (4, 1, 120, 4096) or not finite:
+        raise AssertionError(f"T5-XXL forward: shape {tuple(emb.shape)}, finite {finite}")
+    del enc, emb
+    free_memory()
+    return dict(ms=ms, params=n_params)
 
 
 # ------------------------------------------------------------------ train
@@ -1811,10 +2027,15 @@ def main():
         log(f"[kernels] layernorm_modulate {json.dumps(r)}")
     log(f"[phase] kernels {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 3. slice
+    # ---- 3. slice, and the prompt -> image path at 256px; T5-XXL
     t_phase = time.perf_counter()
-    res = run_slice(STEPS, PROMPTS)
+    tok_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bpe_")
+    enc = build_encoders(tok_dir.name)
+    res = run_slice(STEPS, PROMPTS, enc)
     log(f"[phase] slice {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    t5 = run_t5()
+    log(f"[phase] serve t5 {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 4. train
     t_phase = time.perf_counter()
@@ -1858,7 +2079,9 @@ def main():
         log(f"[phase] stage4 {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         sp = run_sample512(trainer.model)
-        del trainer, batch
+        sv = run_serve512(trainer.model, enc, sp["rec"].forward_launches(2 * STEPS - 1))
+        del trainer, batch, enc
+        tok_dir.cleanup()
         free_memory()
         log(f"[phase] sample512 {time.perf_counter() - t_phase:.1f} s")
 
@@ -1992,6 +2215,9 @@ def main():
         entry["launches_stage3_step"] = s3["want"][
             "em" if entry["name"].endswith("major") else "em_bwd"]
     kernels[-6]["launches_sample512"] = sp["launches"]["em"]
+    kernels[-6]["launches_prompt_generate_512"] = sv["launches"]["em"]
+    kernels[0]["launches_prompt_generate_256"] = res["serve"]["launches"]["attention"]
+    kernels[1]["launches_prompt_generate_256"] = res["serve"]["launches"]["moe"]
     kernels[-4]["launches_chain_stage3_step"] = ch["want3"]["bh"]
     kernels[-3]["launches_chain_stage3_step"] = ch["want3"]["bh_bwd"]
     # K1 and K1b over one XL stage-2 step under 'auto': the in-step yardstick of K5
@@ -2053,6 +2279,12 @@ def main():
         f"gradient rel L2 {s4['cmp']['rel_grad']:.3e}")
     log(f"[sample512] {sp['wall_ms']:.1f} ms for {SAMPLE512_PROMPTS} images, "
         f"{sp['img_per_s']:.4f} img/s at 512px; latents std {sp['latents_std']:.4f}")
+    s256 = res["serve"]
+    for label, run, base in (("256px", s256, res["img_per_s"]), ("512px", sv, sp["img_per_s"])):
+        log(f"[serve {label}] prompt -> image {run['img_per_s']:.4f} img/s end to end "
+            f"(latents only {base:.4f}); ms per image {json.dumps(run['ms_per_image'])}, "
+            f"decode share {run['decode_share']:.4f}, peak {run['peak_gib']:.2f} GiB")
+    log(f"[serve] {json.dumps(dict(serve_256=s256, serve_512=sv, t5=t5))}")
     log(f"[phase] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -1,19 +1,20 @@
 """EDM latent diffusion in PyTorch, counterpart of
-micro_diffusion_tpu/models/diffusion.py: the training loss and the sampler.
+micro_diffusion_tpu/models/diffusion.py: the training loss, the sampler and the
+prompt -> image path.
 
-``LatentDiffusion`` holds the DiT as a submodule. ``forward(batch)`` is the
-training loss on precomputed latents (``edm_loss``: log-normal sigma, the EDM
-weight, the masked patch-pooled loss, the caption drop); its sigma normal, noise
-and token mask come from a ``torch.Generator`` or are injected. The sampler
-from precomputed caption embeddings: ``generate(text_embeddings=...,
-return_only_latents=True)`` runs the EDM Heun sampler (with classifier-free
-guidance) as a Python loop over steps, with the Heun correction on every step
-but the last. The sigma schedule is host float64 numpy (bit-identical to the
-JAX package); the per-step scalars are rounded to float32 on the host as the
-JAX loop carries them, and x is carried in float32.
-
-Not ported yet, and raising here: prompt encoding and latent decoding (the text
-encoder and VAE wait for their weights, ROADMAP queue A item 7).
+``LatentDiffusion`` holds the DiT as a submodule, and optionally the frozen VAE
+(models/vae.py), text encoder and tokenizer (models/text_encoders.py).
+``forward(batch)`` is the training loss (``edm_loss``: log-normal sigma, the EDM
+weight, the masked patch-pooled loss, the caption drop) on precomputed latents, or on
+raw images and token ids through the VAE and the text encoder; its draws (the VAE's
+latent noise, the sigma normal, the noise, the token mask) come from a
+``torch.Generator`` or are injected. ``generate(prompt=... | tokenized_prompts=... |
+text_embeddings=...)`` tokenizes and encodes, runs the EDM Heun sampler (with
+classifier-free guidance) as a Python loop over steps, with the Heun correction on
+every step but the last, then decodes with the VAE into images in [0, 1]. The sigma
+schedule is host float64 numpy (bit-identical to the JAX package); the per-step
+scalars are rounded to float32 on the host as the JAX loop carries them, and x is
+carried in float32.
 """
 
 import dataclasses
@@ -72,23 +73,28 @@ VAE_SCALING_FACTORS = {
     "ostris/vae-kl-f8-d16": 1.0,
 }
 
-_ENCODERS_WAIT = ("the text encoder and VAE are not ported yet: they wait for their "
-                  "weights (ROADMAP queue A, item 7)")
-
-
 class LatentDiffusion(nn.Module):
-    """DiT denoiser with the EDM preconditioning and Heun sampler."""
+    """DiT denoiser with the EDM preconditioning and Heun sampler, and the frozen
+    ``vae``, ``text_encoder`` and ``tokenizer`` handles (None when not attached:
+    then the paths that need them raise)."""
 
-    def __init__(self, dit: model_zoo.DiT, latent_res: int = 32, p_mean: float = -0.6,
-                 p_std: float = 1.2, train_mask_ratio: float = 0.0,
-                 latent_scale: float | None = None):
+    def __init__(self, dit: model_zoo.DiT, vae=None, text_encoder=None, tokenizer=None,
+                 latent_res: int = 32, p_mean: float = -0.6, p_std: float = 1.2,
+                 train_mask_ratio: float = 0.0, latent_scale: float | None = None,
+                 precomputed_latents: bool = True):
         super().__init__()
         self.dit = dit
+        self.vae = vae
+        self.text_encoder = text_encoder
+        self.tokenizer = tokenizer
         self.latent_res = latent_res
         self.edm_config = EDMConfig(P_mean=p_mean, P_std=p_std)
         self.train_mask_ratio = train_mask_ratio
         self.eval_mask_ratio = 0.0  # no masking during sampling/eval (model.py:88)
-        self.latent_scale = 1.0 if latent_scale is None else latent_scale
+        self.precomputed_latents = precomputed_latents
+        if latent_scale is None:
+            latent_scale = float(getattr(vae, "scaling_factor", 1.0))
+        self.latent_scale = latent_scale
 
     def model_forward_wrapper(self, x, sigma, y, cfg: float = 1.0,
                               mask_ratio: float = 0.0, **mask_kw) -> dict:
@@ -142,18 +148,26 @@ class LatentDiffusion(nn.Module):
 
     def forward(self, batch: dict, generator: torch.Generator | None = None,
                 train: bool = True, **draws):
-        """Training/eval loss on precomputed latents (model.py:104-142).
+        """Training/eval loss (model.py:104-142, JAX diffusion.py:229-250).
 
-        batch: 'image_latents' (N, C, H, W), 'caption_latents' (N, 1, L, D) or
-        (N, L, D), optional 'drop_caption_mask' (N,) (0 drops the caption).
-        ``draws`` (rnd_normal, noise, token_mask) are injected into ``edm_loss``.
+        batch: 'image_latents' (N, C, H, W) or raw 'image' (N, 3, H, W) in [-1, 1]
+        (VAE-encoded, times ``latent_scale``); 'caption_latents' (N, 1, L, D) or
+        (N, L, D), or token ids 'captions' (N, L) (text-encoded); optional
+        'drop_caption_mask' (N,) (0 drops the caption). ``draws``: ``latent_noise``
+        for the VAE's sample, and rnd_normal, noise, token_mask for ``edm_loss``.
         Returns (loss, latents, conditioning) as the reference does.
         """
-        if "image_latents" not in batch or "caption_latents" not in batch:
-            raise NotImplementedError("training needs precomputed latents: "
-                                      + _ENCODERS_WAIT)
-        latents = batch["image_latents"]
-        conditioning = batch["caption_latents"]
+        latent_noise = draws.pop("latent_noise", None)
+        if self.precomputed_latents and "image_latents" in batch:
+            latents = batch["image_latents"]
+        else:
+            latents = self._require("vae", "training on raw images").encode(
+                batch["image"], generator=generator, noise=latent_noise) * self.latent_scale
+        if self.precomputed_latents and "caption_latents" in batch:
+            conditioning = batch["caption_latents"]
+        else:
+            conditioning = self._require("text_encoder", "training on captions").encode(
+                batch["captions"])[0]
         if "drop_caption_mask" in batch:  # zero out dropped captions (model.py:131-135)
             keep = batch["drop_caption_mask"].reshape((-1,) + (1,) * (conditioning.dim() - 1))
             conditioning = conditioning * keep
@@ -161,6 +175,14 @@ class LatentDiffusion(nn.Module):
                              mask_ratio=self.train_mask_ratio if train else self.eval_mask_ratio,
                              generator=generator, **draws)
         return loss, latents, conditioning
+
+    def _require(self, name: str, what: str):
+        handle = getattr(self, name)
+        if handle is None:
+            raise RuntimeError(f"{what} needs a {name.replace('_', ' ')}, and none is "
+                               "attached (create_latent_diffusion(load_encoders=True) or "
+                               f"LatentDiffusion({name}=...))")
+        return handle
 
     def _sigma_schedule(self, num_steps: int) -> np.ndarray:
         """rho-spaced sigma schedule, float64 on the host (reference model.py:246-254)."""
@@ -219,26 +241,48 @@ class LatentDiffusion(nn.Module):
         return x_cur
 
     @torch.no_grad()
+    def encode_prompts(self, prompt=None, tokenized_prompts=None, attention_mask=None):
+        """Captions, or their token ids, -> text embeddings (JAX diffusion.py:373-380)."""
+        if tokenized_prompts is None:
+            out = self._require("tokenizer", "generate(prompt=...)").tokenize(list(prompt))
+            tokenized_prompts = out["input_ids"]
+            attention_mask = out.get("attention_mask")
+        return self._require("text_encoder", "generate(prompt=...)").encode(
+            tokenized_prompts, attention_mask=attention_mask)[0]
+
+    @torch.no_grad()
+    def decode_latents(self, latents):
+        """Latents -> fp32 images in [0, 1] (JAX diffusion.py:406-414)."""
+        image = self._require("vae", "decoding latents").decode(latents / self.latent_scale)
+        return (image / 2.0 + 0.5).clamp(0.0, 1.0).float()
+
+    @torch.no_grad()
     def generate(self, prompt=None, tokenized_prompts=None, attention_mask=None,
                  text_embeddings=None, guidance_scale: float = 5.0,
                  num_inference_steps: int = 30, seed: int | None = None,
                  return_only_latents: bool = False):
-        """Caption embeddings -> latents (reference model.py:299-353).
+        """Text -> image (reference model.py:299-353, JAX diffusion.py:351-414).
 
-        text_embeddings: (B, L, cap_dim) or (B, 1, L, cap_dim). The latents and any
-        sampler noise come from a torch.Generator seeded with ``seed`` (0 if None).
+        Takes raw prompts (needs the tokenizer and text encoder), token ids (the text
+        encoder), or ``text_embeddings`` (B, L, cap_dim) / (B, 1, L, cap_dim). The
+        latents and any sampler noise come from a torch.Generator seeded with
+        ``seed`` (0 if None). Returns fp32 images (B, 3, 8 latent_res, 8 latent_res)
+        in [0, 1], or with ``return_only_latents`` the sampled latents.
         """
+        if prompt is None and tokenized_prompts is None and text_embeddings is None:
+            raise ValueError("Must provide either prompt or tokenized prompts")
         if text_embeddings is None:
-            raise NotImplementedError("generate() needs text_embeddings: " + _ENCODERS_WAIT)
-        if not return_only_latents:
-            raise NotImplementedError("decoding latents needs the VAE: " + _ENCODERS_WAIT)
+            text_embeddings = self.encode_prompts(prompt, tokenized_prompts, attention_mask)
         device = self.dit.pos_embed.device
         gen = torch.Generator(device=device).manual_seed(seed if seed else 0)
         y = torch.as_tensor(text_embeddings, device=device)
         shape = (y.shape[0], self.dit.in_channels, self.latent_res, self.latent_res)
         latents = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return self.edm_sampler_loop(latents, y, steps=num_inference_steps,
-                                     cfg=guidance_scale, generator=gen)
+        latents = self.edm_sampler_loop(latents, y, steps=num_inference_steps,
+                                        cfg=guidance_scale, generator=gen)
+        if return_only_latents:
+            return latents
+        return self.decode_latents(latents)
 
 
 def create_latent_diffusion(
@@ -254,6 +298,9 @@ def create_latent_diffusion(
     p_std: float = 1.2,
     train_mask_ratio: float = 0.0,
     load_encoders: bool = False,
+    weights_dir: str | None = None,
+    text_encoder_weights_dir: str | None = None,
+    tokenizer_dir: str | None = None,
     remat: bool = False,
     remat_policy: str = "full",
     moe_dispatch: str = "onehot",
@@ -262,17 +309,21 @@ def create_latent_diffusion(
     device=None,
     seed: int = 0,
 ) -> LatentDiffusion:
-    """Model factory with the reference signature (model.py:356-405); takes every
-    key of a recipe's model block (configs/base.yaml) as it is written.
+    """Model factory with the reference signature (model.py:356-405, JAX
+    diffusion.py:417-508); takes every key of a recipe's model block
+    (configs/base.yaml) as it is written.
 
     Builds the DiT on ``device`` (the card when None; raises if there is none) and
     initialises it with the JAX package's initialisers from a generator seeded
-    with ``seed``. Load trained weights afterwards (models/interop.py). The model
-    trains on precomputed latents only (``precomputed_latents`` False raises, as
-    does ``load_encoders``: the encoders wait for their weights).
+    with ``seed``. Load trained weights afterwards (models/interop.py).
+    ``load_encoders=True`` attaches the frozen VAE, text encoder and tokenizer from
+    local snapshots: ``weights_dir`` holds the VAE (FileNotFoundError without it),
+    ``text_encoder_weights_dir`` / ``tokenizer_dir`` the encoder and tokenizer (the
+    encoder's defaulting to ``weights_dir``). The VAE computes in bf16 unless
+    ``dtype`` is float32, as the reference's ``torch_dtype``. Encoders with random
+    weights are built directly (``AutoencoderKL(...).init_weights``,
+    ``UniversalTextEncoder(..., pretrained=False)``) and passed to LatentDiffusion.
     """
-    if load_encoders or not precomputed_latents:
-        raise NotImplementedError(_ENCODERS_WAIT)
     device = resolve_device(device)
     _, cap_dim = text_encoder_embedding_format(text_encoder_name)
     dit = getattr(model_zoo, dit_arch)(
@@ -285,6 +336,20 @@ def create_latent_diffusion(
     )
     if device.type != "meta":
         dit.init_weights(torch.Generator(device=device).manual_seed(seed))
-    return LatentDiffusion(dit, latent_res=latent_res, p_mean=p_mean, p_std=p_std,
+    vae = text_encoder = tokenizer = None
+    if load_encoders:
+        from .text_encoders import UniversalTextEncoder, UniversalTokenizer
+        from .vae import AutoencoderKL
+
+        vae = AutoencoderKL.from_pretrained(
+            vae_name, weights_dir=weights_dir, device=device,
+            compute_dtype=torch.float32 if dtype == "float32" else torch.bfloat16)
+        text_encoder = UniversalTextEncoder(
+            text_encoder_name, dtype=dtype,
+            weights_dir=text_encoder_weights_dir or weights_dir, device=device)
+        tokenizer = UniversalTokenizer(text_encoder_name, tokenizer_dir=tokenizer_dir)
+    return LatentDiffusion(dit, vae=vae, text_encoder=text_encoder, tokenizer=tokenizer,
+                           latent_res=latent_res, p_mean=p_mean, p_std=p_std,
                            train_mask_ratio=train_mask_ratio,
-                           latent_scale=VAE_SCALING_FACTORS.get(vae_name))
+                           latent_scale=VAE_SCALING_FACTORS.get(vae_name),
+                           precomputed_latents=precomputed_latents)

@@ -61,10 +61,10 @@ def params_to_torch_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _to_module(module: torch.nn.Module, state_dict: Dict[str, Any],
-               strict: bool = True) -> torch.nn.Module:
+def load_numpy_state_dict(module: torch.nn.Module, state_dict: Dict[str, Any],
+                          strict: bool = True) -> torch.nn.Module:
     """load_state_dict after turning numpy arrays into tensors (copy_ moves them to
-    the module's device and dtype)."""
+    the module's device and dtype); the converters below give such dicts."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32)) if isinstance(v, np.ndarray) else v
           for k, v in state_dict.items()}
     module.load_state_dict(sd, strict=strict)
@@ -73,7 +73,7 @@ def _to_module(module: torch.nn.Module, state_dict: Dict[str, Any],
 
 def load_jax_params(module: torch.nn.Module, params: Dict[str, Any]) -> torch.nn.Module:
     """Load a JAX DiT params tree into the port's DiT ``module`` (strict)."""
-    return _to_module(module, params_to_torch_state_dict(params))
+    return load_numpy_state_dict(module, params_to_torch_state_dict(params))
 
 
 def _strip_prefixes(state_dict: Dict[str, Any]) -> Dict[str, Any]:
@@ -108,5 +108,94 @@ def load_torch_checkpoint(path: str, module: torch.nn.Module | None = None,
             continue
         out[key] = value
     if module is not None:
-        _to_module(module, out, strict)
+        load_numpy_state_dict(module, out, strict)
+    return out
+
+
+# ------------------------------------------------- frozen encoders (CLIP, T5, VAE)
+# Inverses of the JAX package's clip_torch_to_params (text_encoders.py:119),
+# t5_torch_to_params (:284) and vae_torch_to_params (vae.py:339), on numpy arrays:
+# flax trees -> the checkpoints' names, which the port's modules carry.
+
+
+def _leaf(name: str, arr: np.ndarray) -> tuple:
+    """A flax leaf -> (torch leaf name, array): kernels transposed to (out, in[, kh,
+    kw]), LayerNorm/GroupNorm scales and embedding tables named 'weight'."""
+    if name == "kernel":
+        return "weight", arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    return {"scale": "weight", "embedding": "weight"}.get(name, name), arr
+
+
+def clip_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX CLIPTextTransformer params -> OpenCLIP text-tower names."""
+    p = params.get("params", params)
+    out = {"token_embedding.weight": np.asarray(p["token_embedding"]["embedding"]),
+           "positional_embedding": np.asarray(p["positional_embedding"])}
+    for mod, leaves in p.items():
+        if not mod.startswith("resblocks_") and mod != "ln_final":
+            continue
+        if mod == "ln_final":
+            dst = "ln_final"
+        else:  # resblocks_{i}_{ln_1 | ln_2 | attn_in_proj | attn_out_proj | mlp_c_fc | ...}
+            _, i, rest = mod.split("_", 2)
+            sub = {"attn_out_proj": "attn.out_proj", "mlp_c_fc": "mlp.c_fc",
+                   "mlp_c_proj": "mlp.c_proj"}.get(rest, rest)
+            dst = f"transformer.resblocks.{i}.{sub}"
+        for leaf, arr in leaves.items():
+            name, arr = _leaf(leaf, np.asarray(arr))
+            if dst.endswith("attn_in_proj"):  # nn.MultiheadAttention's fused q/k/v
+                out[f"{dst[:-len('attn_in_proj')]}attn.in_proj_{name}"] = arr
+            else:
+                out[f"{dst}.{name}"] = arr
+    return out
+
+
+def t5_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX T5Encoder params -> HF T5EncoderModel names (the token table under both
+    of its tied names)."""
+    p = params.get("params", params)
+    table = np.asarray(p["shared"]["embedding"])
+    out = {"shared.weight": table, "encoder.embed_tokens.weight": table,
+           "encoder.final_layer_norm.weight": np.asarray(p["final_layer_norm"]),
+           "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+               np.asarray(p["relative_attention_bias"])}
+    where = {"q": "0.SelfAttention.q", "k": "0.SelfAttention.k", "v": "0.SelfAttention.v",
+             "o": "0.SelfAttention.o", "ln_0": "0.layer_norm", "ln_1": "1.layer_norm",
+             "wi_0": "1.DenseReluDense.wi_0", "wi_1": "1.DenseReluDense.wi_1",
+             "wo": "1.DenseReluDense.wo"}
+    for mod, leaf in p.items():
+        if not mod.startswith("layers_"):
+            continue
+        _, i, rest = mod.split("_", 2)
+        arr = np.asarray(leaf["kernel"]).T if isinstance(leaf, dict) else np.asarray(leaf)
+        out[f"encoder.block.{i}.layer.{where[rest]}.weight"] = arr
+    return out
+
+
+def _vae_module_name(tok: str) -> str:
+    parts = tok.split("_")
+    if tok.startswith(("down_", "up_")) and parts[2] == "resnet":
+        return f"{parts[0]}_blocks.{parts[1]}.resnets.{parts[3]}"
+    if tok.startswith("down_"):  # down_{i}_downsample
+        return f"down_blocks.{parts[1]}.downsamplers.0.conv"
+    if tok.startswith("up_"):  # up_{i}_upsample
+        return f"up_blocks.{parts[1]}.upsamplers.0.conv"
+    if tok.startswith("mid_resnet_"):
+        return f"mid_block.resnets.{parts[2]}"
+    return {"mid_attn": "mid_block.attentions.0", "to_out_0": "to_out.0"}.get(tok, tok)
+
+
+def vae_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX AutoencoderKL params -> diffusers AutoencoderKL names."""
+    out: Dict[str, np.ndarray] = {}
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                visit(v, path + [k])
+            return
+        name, arr = _leaf(path[-1], np.asarray(node))
+        out[".".join([_vae_module_name(t) for t in path[:-1]] + [name])] = arr
+
+    visit(params.get("params", params), [])
     return out

@@ -164,8 +164,9 @@ class NaNCatcher(Callback):
 class LogDiffusionImages(Callback):
     """Sample the fixed prompts at each eval (reference callbacks.py:9-44).
 
-    The port has no text encoder or VAE (ROADMAP queue A item 7), so it samples
-    from precomputed prompt embeddings, ``prompt_latents_path`` (an .npy of shape
+    It samples from precomputed prompt embeddings, not through an attached text
+    encoder and VAE as the JAX callback can (ROADMAP queue A item 4),
+    ``prompt_latents_path`` (an .npy of shape
     (P, 1, L, D) or (P, L, D)), with the eval weights (the EMA when there is one),
     and logs the latents' standard deviation. Without that file it warns once and
     logs nothing.
@@ -190,8 +191,8 @@ class LogDiffusionImages(Callback):
     def eval_end(self, trainer, eval_loss) -> None:
         if not (self.prompt_latents_path and os.path.exists(self.prompt_latents_path)):
             if not self._warned:
-                trainer.print("LogDiffusionImages: no text encoder in the port and no "
-                              "prompt_latents_path; skipping image logging")
+                trainer.print("LogDiffusionImages: no prompt_latents_path; skipping "
+                              "image logging")
                 self._warned = True
             return
         emb = np.load(self.prompt_latents_path)

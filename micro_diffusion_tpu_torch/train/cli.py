@@ -32,8 +32,8 @@ def build_from_config(cfg: dict, callbacks: Sequence[Callback] = ()) -> Trainer:
     """The trainer a recipe describes; ``callbacks`` are added after the
     recipe's own."""
     if not cfg["model"].get("precomputed_latents", True):
-        raise ValueError("training takes precomputed latents (the text encoder and VAE "
-                         "are not ported: ROADMAP queue A, item 7)")
+        raise ValueError("for microbudget training the latents are precomputed, as in "
+                         "the JAX package's train.py (no raw-image dataset loader)")
     trainer_cfg = dict(cfg["trainer"])
     device = _device(str(trainer_cfg.pop("device", "cuda")))
     seed = int(trainer_cfg.get("seed", cfg.get("seed", 18)))

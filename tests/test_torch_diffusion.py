@@ -54,10 +54,15 @@ def test_generate_shape_and_seed():
     assert torch.isfinite(a).all()
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(text_embeddings=y, num_inference_steps=2)  # needs the VAE
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(prompt=["a cat"], return_only_latents=True)  # text encoder
+    # decoding and prompts raise only while no VAE / tokenizer / text encoder is
+    # attached (tests/test_torch_prompt_to_image.py drives them attached)
+    with pytest.raises(RuntimeError, match="needs a vae, and none is attached"):
+        model.generate(text_embeddings=y, num_inference_steps=2)
+    with pytest.raises(RuntimeError, match="needs a tokenizer, and none is attached"):
+        model.generate(prompt=["a cat"], return_only_latents=True)
+    with pytest.raises(RuntimeError, match="needs a text encoder, and none is attached"):
+        model.generate(tokenized_prompts=np.zeros((2, 77), np.int64),
+                       return_only_latents=True)
 
 
 def test_no_device_means_the_card(monkeypatch):
@@ -75,11 +80,13 @@ def test_port_imports_no_jax():
         "import micro_diffusion_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "       or n == 'flax' or n.startswith('flax.')\n"
-        "       or n == 'micro_diffusion_tpu' or n.startswith('micro_diffusion_tpu.')]\n"
+        "banned = ('jax', 'flax', 'micro_diffusion_tpu', 'transformers', 'safetensors',\n"
+        "          'open_clip', 'diffusers', 'sentencepiece', 'regex')\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in banned]\n"
         "assert not bad, bad\n"
         "assert 'micro_diffusion_tpu_torch.models.diffusion' in sys.modules\n"
+        "assert 'micro_diffusion_tpu_torch.models.text_encoders' in sys.modules\n"
+        "assert 'micro_diffusion_tpu_torch.models.vae' in sys.modules\n"
         "assert 'micro_diffusion_tpu_torch.train.train_step' in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -203,7 +203,13 @@ def test_recipes_and_overlays_load():
         assert model.latent_res == over["model"]["latent_res"]
         assert model.dit.blocks[1].mlp.dispatch == dispatch[stage]
         assert model.dit.blocks[0].norm1.fused_adaln
-    for bad in ("os.system", "micro_diffusion_tpu.models.vae.AutoencoderKL",
+    # a JAX target resolves to the port's module of the same name once it is ported
+    # (the VAE since slice 6), and raises while it is not (the CLIP vision tower)
+    from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+    assert tconfig.resolve_target("micro_diffusion_tpu.models.vae.AutoencoderKL") \
+        is AutoencoderKL
+    for bad in ("os.system",
+                "micro_diffusion_tpu.models.clip_zero_shot.CLIPVisionTransformer",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
         with pytest.raises(ValueError, match="no counterpart"):
             tconfig.resolve_target(bad)

@@ -74,6 +74,19 @@ Phases, each of which fails the run on a failed check:
                model, launch counts checked; then generate(prompt=[2 captions]) ->
                (2, 3, 512, 512) with the same counts, one VAE encode of 2 seeded
                512px images, and one 512px decode in bf16 against fp32.
+     eval    - the evaluation path at 512px with random weights from the seed: an XL
+               model as the eval CLI builds it ('onehot', fused adaLN off,
+               pos_interp_scale 2) with the CLIP-H text tower and the SDXL VAE through
+               eval.generate_images (4 captions of configs/eval_prompts.yaml, one
+               generate call, 30 steps, CFG 5) with the launch counts checked and the
+               PNGs and manifest read back; K2 at the path's k = 256 against its plain
+               version; InceptionV3 pool3 at full architecture (synthetic_params(0)):
+               fp32 with TF32 off, and TF32 on, against the card's float64 forward, the
+               feature rate; the FID CLI as a subprocess on the 4 images and 60 seeded
+               stand-in real images, against the same FID in this process; a CLIP
+               ViT-L/14 snapshot (random weights) through CLIPZeroShot, card vs CPU,
+               the encode rate; the GenEval CLIP colour judge and scorer on the 4
+               images; the FID-30K wall-clock estimate.
   9. chain   - MicroDiT-Tiny through the stage handoffs: stage 2 (256px) saves,
                stage 3 loads its weights only across the pos_embed change (1024
                tokens) and saves, stage 4 loads stage 3's full state (bitwise
@@ -194,6 +207,24 @@ VAE_TOL = 3e-2  # relative L2 of a 512px decode, bf16 vs fp32 compute on the sam
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OVERLAY = os.path.join(ROOT, "micro_diffusion_tpu_torch", "configs", "h100_1gpu")
 PROMPTS_FILE = os.path.join(ROOT, "configs", "eval_prompts.yaml")  # the recipe's, cwd-free
+EVAL_PROMPTS = 4  # [eval]: captions of PROMPTS_FILE, one generate call (batch 8 under CFG)
+EVAL_REAL = 60    # seeded stand-ins for the real reference images of the FID CLI
+FEATURE_BATCH = 64  # Inception feature rate: images per call after a warm-up
+INCEPTION_TOL = 1e-4  # max |fp32 - float64| / max |float64| of the pool3 features, TF32
+                      # off: ~95 convolutions in fp32 (2^-24 an operation) summed over
+                      # up to 2048 x 3 x 3 inputs, far below it
+CLIP_CPU_TOL = 1e-3  # relative L2 of CLIP image embeddings, card vs CPU, fp32 (TF32 off):
+                     # 24 layers summed in other orders
+FID_CLI_TOL = 2e-4  # |FID of the CLI - FID in this process|: the CLI prints 4 decimals,
+                    # the features of the two processes agree to fp32 rounding
+CLIP_L14 = {  # openai/clip-vit-large-patch14's widths (upstream GenEval's colour judge)
+    "vision": {"image_size": 224, "patch_size": 14, "hidden_size": 1024,
+               "num_hidden_layers": 24, "num_attention_heads": 16, "hidden_act": "quick_gelu"},
+    "text": {"vocab_size": 49408, "hidden_size": 768, "num_hidden_layers": 12,
+             "num_attention_heads": 12, "max_position_embeddings": 77,
+             "hidden_act": "quick_gelu"},
+    "projection_dim": 768,
+}
 
 
 def log(msg):
@@ -1060,6 +1091,329 @@ def run_t5():
     del enc, emb
     free_memory()
     return dict(ms=ms, params=n_params)
+
+
+# ------------------------------------------------------------------ eval
+
+
+def eval_captions(n):
+    """The first ``n`` prompts of the recipe's fixed evaluation prompts."""
+    import yaml
+
+    with open(PROMPTS_FILE) as f:
+        return yaml.safe_load(f)["prompts"][:n]
+
+
+def write_real_images(dirname, n, seed):
+    """``n`` seeded smooth RGB images, 384 x 320 (the FID loader centre-crops and
+    resizes them), standing in for a real reference set."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(dirname, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        small = Image.fromarray(rng.integers(0, 256, (5, 6, 3), np.uint8))
+        small.resize((384, 320), Image.BILINEAR).save(os.path.join(dirname, f"{i:06d}.png"))
+
+
+def clip_l14_shapes():
+    """HF CLIPModel names and shapes at CLIP_L14's widths."""
+    v, t, proj = CLIP_L14["vision"], CLIP_L14["text"], CLIP_L14["projection_dim"]
+    wv, wt, patch = v["hidden_size"], t["hidden_size"], v["patch_size"]
+    shapes = {
+        "vision_model.embeddings.class_embedding": (wv,),
+        "vision_model.embeddings.patch_embedding.weight": (wv, 3, patch, patch),
+        "vision_model.embeddings.position_embedding.weight":
+            ((v["image_size"] // patch) ** 2 + 1, wv),
+        "text_model.embeddings.token_embedding.weight": (t["vocab_size"], wt),
+        "text_model.embeddings.position_embedding.weight": (t["max_position_embeddings"], wt),
+        "visual_projection.weight": (proj, wv), "text_projection.weight": (proj, wt),
+        "logit_scale": (),
+    }
+    norms = [("vision_model.pre_layrnorm", wv), ("vision_model.post_layernorm", wv),
+             ("text_model.final_layer_norm", wt)]
+    for tower, w, layers in (("vision_model", wv, v["num_hidden_layers"]),
+                             ("text_model", wt, t["num_hidden_layers"])):
+        for i in range(layers):
+            pre = f"{tower}.encoder.layers.{i}."
+            norms += [(pre + "layer_norm1", w), (pre + "layer_norm2", w)]
+            for name, o, n_in in [(f"self_attn.{x}_proj", w, w) for x in ("q", "k", "v", "out")] + [
+                    ("mlp.fc1", 4 * w, w), ("mlp.fc2", w, 4 * w)]:
+                shapes[pre + name + ".weight"] = (o, n_in)
+                shapes[pre + name + ".bias"] = (o,)
+    for name, w in norms:
+        shapes[name + ".weight"] = shapes[name + ".bias"] = (w,)
+    return shapes
+
+
+def write_clip_snapshot(dirname, gen):
+    """A local HF CLIPModel snapshot at the widths of openai/clip-vit-large-patch14
+    (the model upstream GenEval's colour judge uses), random weights from ``gen``
+    (fan-in scaled matrices, embeddings at 0.02, LayerNorms near the identity):
+    config.json, pytorch_model.bin (fp32) and a BPE vocabulary learned from the
+    GenEval colour prompts (eot the highest id, as in CLIP's)."""
+    import torch
+    from micro_diffusion_tpu_torch.eval.geneval import COCO_CLASSES, GENEVAL_COLORS
+    from micro_diffusion_tpu_torch.utils.clip_bpe import write_bpe_vocab
+
+    os.makedirs(dirname, exist_ok=True)
+    sd = {}
+    for name, shape in clip_l14_shapes().items():
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        if name == "logit_scale":
+            x = torch.tensor(math.log(100.0))
+        elif "norm" in name:
+            x = (1.0 if name.endswith(".weight") else 0.0) + 0.02 * x
+        elif "embedding" in name or name.endswith(".bias"):
+            x = 0.02 * x
+        else:
+            x = x * math.prod(shape[1:]) ** -0.5
+        sd[name] = x.cpu()
+    torch.save(sd, os.path.join(dirname, "pytorch_model.bin"))
+    with open(os.path.join(dirname, "config.json"), "w") as f:
+        json.dump({"vision_config": CLIP_L14["vision"], "text_config": CLIP_L14["text"],
+                   "projection_dim": CLIP_L14["projection_dim"]}, f)
+    write_bpe_vocab([f"a photo of a {c} {o}" for c in GENEVAL_COLORS for o in COCO_CLASSES],
+                    dirname, num_merges=BPE_MERGES)
+    return sum(v.numel() for v in sd.values())
+
+
+def read_pngs(dirname, names):
+    import numpy as np
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(os.path.join(dirname, n)).convert("RGB"))
+                     for n in names])
+
+
+def run_eval(enc, tmp, gen):
+    """The evaluation path at 512px (see the module docstring, phase [eval])."""
+    import numpy as np
+    import torch
+    from micro_diffusion_tpu_torch.eval import fid as tfid
+    from micro_diffusion_tpu_torch.eval import geneval
+    from micro_diffusion_tpu_torch.eval import inception as tinc
+    from micro_diffusion_tpu_torch.eval.generate_eval_images import generate_images
+    from micro_diffusion_tpu_torch.models.clip_zero_shot import (CLIPVisionTransformer,
+                                                                 CLIPZeroShot,
+                                                                 preprocess_images)
+    from micro_diffusion_tpu_torch.models.diffusion import create_latent_diffusion
+
+    out = {}
+    # ---- the model as the eval CLI builds it: XL at 512px, onehot, fused adaLN off
+    t0 = time.perf_counter()
+    model = create_latent_diffusion(dit_arch="MicroDiT_XL_2", latent_res=64,
+                                    pos_interp_scale=2.0, moe_dispatch="onehot",
+                                    fused_adaln=False, device="cuda", seed=SEED)
+    perturb_zero_init(model.dit, gen)
+    for key, handle in enc.items():
+        setattr(model, key, handle)
+    captions = eval_captions(EVAL_PROMPTS)
+    y = torch.randn(EVAL_PROMPTS, 77, 1024, generator=gen, device="cuda")
+    x = torch.randn(EVAL_PROMPTS, 4, 64, 64, generator=gen, device="cuda")
+    with torch.no_grad(), record_path(model.dit) as rec:
+        model.model_forward_wrapper(x, torch.full((1,), 2.5, device="cuda"), y, cfg=5.0)
+    want = rec.forward_launches(2 * STEPS - 1)
+    if want != launch_dict(attention=69 * (2 * STEPS - 1), moe=16 * (2 * STEPS - 1)):
+        raise AssertionError(f"[eval] XL 512px onehot forward records {rec.calls()}, not 69 "
+                             "K1 / 16 K2 calls")
+    model.encode_prompts(captions)  # warm-up of the encoder and the VAE at these shapes
+    model.decode_latents(torch.zeros(EVAL_PROMPTS, 4, 64, 64, device="cuda"))
+    log(f"[eval] MicroDiT-XL 512px (onehot, fused adaLN off, pos_interp_scale 2) built "
+        f"and warmed in {time.perf_counter() - t0:.1f} s")
+
+    # ---- generate_images: 4 captions, one generate call, 30 steps, CFG 5
+    fake = os.path.join(tmp, "eval_fake")
+    with StageTimes(model) as st:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = generate_images(model, captions, fake, batch_size=EVAL_PROMPTS, steps=STEPS,
+                            cfg=5.0, seed=SEED)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = read_counts()
+    names = [f"{i:06d}.png" for i in range(EVAL_PROMPTS)]
+    with open(os.path.join(fake, "manifest.json")) as f:
+        manifest = json.load(f)
+    if (n != EVAL_PROMPTS or sorted(os.listdir(fake)) != names + ["manifest.json"]
+            or manifest != [{"file": a, "caption": c} for a, c in zip(names, captions)]):
+        raise AssertionError(f"[eval] generate_images wrote {sorted(os.listdir(fake))}, "
+                             f"manifest {manifest}")
+    if got != want:
+        raise AssertionError(f"[eval] generate launch counts {got} != {want}")
+    pngs = read_pngs(fake, names)
+    redo = (model.decode_latents(st.latents).cpu().numpy().transpose(0, 2, 3, 1) * 255)
+    png_err = int(np.abs(pngs.astype(np.int16) - redo.astype(np.uint8).astype(np.int16)).max())
+    if pngs.shape != (EVAL_PROMPTS, 512, 512, 3) or png_err > 1 or pngs.std() <= 0:
+        raise AssertionError(f"[eval] PNGs {pngs.shape}, max level difference from the "
+                             f"truncated decode {png_err}, std {pngs.std()}")
+    per = {k: v / n for k, v in st.ms.items()}
+    per["png"] = (wall - sum(st.ms.values())) / n
+    out.update(generate_ms=wall, img_per_s=n / (wall / 1e3), launches=got, png_level_err=png_err)
+    log(f"[eval] generate_images({n} captions, batch {EVAL_PROMPTS}, {STEPS} steps, CFG 5.0) "
+        f"-> {fake}: {wall:.1f} ms, {out['img_per_s']:.4f} img/s; launches {got}, expected "
+        f"{want}; PNGs read back {pngs.shape}, within {png_err} level of the truncated decode")
+    del st
+
+    # ---- K2 at the path's shapes (k = 256) against its plain version
+    moe_rows = []
+    for (nn_, e, k, d, f) in sorted(rec.shapes["moe"]):
+        moe_rows.append(check_moe((k, d, f), gen, nn_, e))
+        log(f"[kernels] moe_ffn (512px eval) {json.dumps(moe_rows[-1])}")
+    out.update(rec=rec, moe_rows=moe_rows)
+    del model
+    free_memory()
+
+    # ---- the FID CLI, in the background while the card runs the rest
+    real = os.path.join(tmp, "eval_real")
+    write_real_images(real, EVAL_REAL, SEED + 21)
+    params = tinc.synthetic_params(0)
+    weights = os.path.join(tmp, "pt_inception_synthetic.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in params.items()}, weights)
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "micro_diffusion_tpu_torch.eval.fid", "--real", real,
+         "--fake", fake, "--inception_weights", weights], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # ---- Inception pool3 at full architecture: fp32 (TF32 off) and TF32 on
+        # against the card's float64 forward of 8 images; the feature rate
+        feature_fn = tinc.make_feature_fn(params, device="cuda")
+        feats_fake = np.concatenate([feature_fn(b) for b in tfid.iter_image_dir_batches(fake)])
+        feats_real = np.concatenate([feature_fn(b) for b in tfid.iter_image_dir_batches(real)])
+        batch8 = torch.from_numpy(np.concatenate(
+            [next(tfid.iter_image_dir_batches(fake)), next(tfid.iter_image_dir_batches(real))[:4]]))
+        net64 = tinc.build_inception(params, "cuda", torch.float64)
+        with torch.no_grad():
+            ref = net64(tinc.preprocess(batch8.cuda().double()))
+            net32 = tinc.build_inception(params, "cuda")
+            with tinc.cudnn_tf32(True):
+                tf32 = net32(tinc.preprocess(batch8.cuda()))
+        f32 = torch.from_numpy(feature_fn(batch8)).cuda()
+        scale = ref.abs().max()
+        err_off = ((f32.double() - ref).abs().max() / scale).item()
+        err_on = ((tf32.double() - ref).abs().max() / scale).item()
+        del net64, net32
+        log(f"[eval] Inception pool3 (synthetic_params(0)) features: fake {feats_fake.shape}, "
+            f"real {feats_real.shape}; 8 images vs the card's float64 forward: max abs err / "
+            f"scale {err_off:.3e} fp32 TF32 off (tol {INCEPTION_TOL}), {err_on:.3e} TF32 on")
+        if not (np.isfinite(feats_fake).all() and np.isfinite(feats_real).all()
+                and feats_fake.shape == (n, 2048) and feats_real.shape == (EVAL_REAL, 2048)
+                and err_off <= INCEPTION_TOL):
+            raise AssertionError(f"[eval] Inception features: fp32 vs float64 {err_off}")
+        rate_batch = np.random.default_rng(SEED).uniform(
+            0, 1, (FEATURE_BATCH, 3, 299, 299)).astype(np.float32)
+        feature_fn(rate_batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            feature_fn(rate_batch)
+        feat_ips = 3 * FEATURE_BATCH / (time.perf_counter() - t0)
+        per["features"] = 1e3 / feat_ips
+        out.update(inception_tf32_off_err=err_off, inception_tf32_on_err=err_on,
+                   feature_img_per_s=feat_ips)
+        log(f"[eval] Inception feature rate at batch {FEATURE_BATCH} (299 px, host to host, "
+            f"TF32 off): {feat_ips:.1f} img/s")
+
+        # ---- CLIP ViT-L/14 at random weights: card vs CPU, the encode rate
+        snap = os.path.join(tmp, "clip_l14")
+        t0 = time.perf_counter()
+        n_clip = write_clip_snapshot(snap, gen)
+        zs = CLIPZeroShot(snap, device="cuda")
+        load_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 22)
+        boxes = rng.integers((0, 0, 32, 32), (256, 256, 256, 256), (64, 4)).tolist()
+        crops = [pngs[i % n][a:a + h, b:b + w] for i, (a, b, h, w) in enumerate(boxes)]
+        card = zs.encode_images(crops[:2])
+        vision_cpu = CLIPVisionTransformer(
+            CLIP_L14["vision"]["image_size"], CLIP_L14["vision"]["patch_size"],
+            CLIP_L14["vision"]["hidden_size"], CLIP_L14["vision"]["num_hidden_layers"],
+            CLIP_L14["vision"]["num_attention_heads"])
+        vision_cpu.load_state_dict({k: v.cpu() for k, v in zs.vision.state_dict().items()})
+        with torch.no_grad():
+            pix = torch.from_numpy(preprocess_images(crops[:2], 224)).permute(0, 3, 1, 2)
+            cpu = (vision_cpu(pix) @ zs.visual_projection.cpu()).numpy()
+        cpu = cpu / np.linalg.norm(cpu, axis=-1, keepdims=True)
+        clip_rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+        del vision_cpu
+        zs.encode_images(crops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zs.encode_images(crops)
+        clip_ips = len(crops) / (time.perf_counter() - t0)
+        pix = torch.from_numpy(preprocess_images(crops, 224)).permute(0, 3, 1, 2).cuda()
+        with torch.no_grad():
+            tower_ms = time_ms(lambda: zs.vision(pix), iters=3, warmup=1)
+        log(f"[eval] CLIP ViT-L/14 ({n_clip} params, random weights) snapshot written and "
+            f"loaded in {load_s:.1f} s; encode_images card vs CPU (fp32, 2 crops): rel L2 "
+            f"{clip_rel:.3e} (tol {CLIP_CPU_TOL}); encode rate {clip_ips:.1f} crops/s end to "
+            f"end (PIL bicubic on the host), vision tower {len(crops) * 1e3 / tower_ms:.1f} "
+            f"crops/s on the card ({tower_ms:.2f} ms for {len(crops)})")
+        if not clip_rel <= CLIP_CPU_TOL:
+            raise AssertionError(f"[eval] CLIP image embeddings card vs CPU rel L2 {clip_rel}")
+        out.update(clip_cpu_rel_l2=clip_rel, clip_img_per_s=clip_ips,
+                   clip_tower_ms_per_64=tower_ms)
+        del zs
+        free_memory()
+
+        # ---- GenEval: the CLIP colour judge and the scorer on the 4 images
+        color_fn = geneval.make_clip_color_fn(snap, device="cuda")
+        judged = [color_fn(pngs[i], [64, 64, 448, 448], "object") for i in range(n)]
+        rows = geneval.load_official_manifest()
+        entries = [next(r for r in rows if r["tag"] == tag)
+                   for tag in ("colors", "single_object", "two_object", "position")]
+        dets = []
+        for entry in entries:
+            boxes = rng.integers(0, 256, (len(entry["include"]), 2))
+            dets.append([{"class": req["class"], "score": float(rng.uniform(0.5, 1.0)),
+                          "bbox": [int(x0), int(y0), int(x0) + 256, int(y0) + 256]}
+                         for req, (x0, y0) in zip(entry["include"], boxes)])
+        records = []
+        scores = geneval.score_generated_images(entries, dets, list(pngs), color_fn=color_fn,
+                                                results_out=records)
+        log(f"[eval] CLIP colour judge over {len(geneval.GENEVAL_COLORS)} colours, one crop per "
+            f"image: {judged}; GenEval on {n} images, tags "
+            f"{[e['tag'] for e in entries]}: {json.dumps(scores)}; records {records}")
+        if (any(c not in geneval.GENEVAL_COLORS for c in judged)
+                or not all(0.0 <= v <= 1.0 for v in scores.values())
+                or [set(r) for r in records] != [{"filename", "tag", "prompt", "correct"}] * n):
+            raise AssertionError(f"[eval] GenEval: judged {judged}, scores {scores}")
+        out.update(geneval=scores, judged=judged)
+
+        # ---- the FID CLI's result, and the same FID in this process
+        stdout, stderr = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    cli_s = time.perf_counter() - t_cli
+    if cli.returncode != 0:
+        raise AssertionError(f"[eval] FID CLI exited {cli.returncode}: {stderr[-2000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    stats_real, stats_fake = tfid.FIDStats(2048), tfid.FIDStats(2048)
+    stats_real.update(feats_real)
+    stats_fake.update(feats_fake)
+    t0 = time.perf_counter()
+    fid_here = tfid.compute_fid_from_stats(stats_real, stats_fake)
+    sqrtm_s = time.perf_counter() - t0
+    log(f"[eval] FID CLI (python -m micro_diffusion_tpu_torch.eval.fid, synthetic pt_inception "
+        f"weights): {json.dumps(res)} in {cli_s:.1f} s wall (process start to exit, beside the "
+        f"card's CLIP and GenEval work); the same FID in this process {fid_here:.6f}, its "
+        f"Frechet distance (scipy sqrtm of 2048 x 2048) {sqrtm_s:.1f} s = "
+        f"{sqrtm_s / cli_s:.2f} of the CLI's wall")
+    if not (math.isfinite(res["fid"]) and (res["real_n"], res["fake_n"]) == (EVAL_REAL, n)
+            and abs(res["fid"] - fid_here) <= FID_CLI_TOL):
+        raise AssertionError(f"[eval] FID CLI {res} against {fid_here} in this process")
+    out.update(fid=res, fid_cli_s=cli_s, sqrtm_s=sqrtm_s, ms_per_image=per)
+    est = 30000 / out["img_per_s"] + 30000 / out["feature_img_per_s"]
+    out["fid30k_estimate_h"] = est / 3600
+    log(f"[eval] {json.dumps({k: v for k, v in out.items() if k not in ('rec', 'moe_rows')})}")
+    log(f"[eval] FID-30K wall-clock estimate (an estimate, not a measurement): 30000 / "
+        f"{out['img_per_s']:.4f} img/s + 30000 / {out['feature_img_per_s']:.1f} img/s = "
+        f"{est:.0f} s = {est / 3600:.2f} h on {smi_line()}")
+    return out
 
 
 # ------------------------------------------------------------------ train
@@ -2080,10 +2434,17 @@ def main():
         t_phase = time.perf_counter()
         sp = run_sample512(trainer.model)
         sv = run_serve512(trainer.model, enc, sp["rec"].forward_launches(2 * STEPS - 1))
-        del trainer, batch, enc
-        tok_dir.cleanup()
+        del trainer, batch
         free_memory()
         log(f"[phase] sample512 {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- the evaluation path at 512px: images -> FID and GenEval
+        t_phase = time.perf_counter()
+        ev = run_eval(enc, tmp, torch.Generator(device="cuda").manual_seed(SEED + 20))
+        del enc
+        tok_dir.cleanup()
+        free_memory()
+        log(f"[phase] eval {time.perf_counter() - t_phase:.1f} s")
 
         # ---- 9. the Tiny stage chain 2 -> 3 -> 4
         t_phase = time.perf_counter()
@@ -2097,7 +2458,8 @@ def main():
     fwd_512 = [s3["train_rec"], s4["train_rec"], sp["rec"]]
     rec2a = s2["auto"]["train_rec"]
     for (b, tq, tk, h) in sorted(set(res["attn_shapes"]).union(
-            rec2a.shapes["attention"], *(rec.shapes["attention"] for rec in fwd_512))):
+            rec2a.shapes["attention"], ev["rec"].shapes["attention"],
+            *(rec.shapes["attention"] for rec in fwd_512))):
         if (b, tq, tk, h) not in have:
             attn_rows.append(check_attention((tq, tk, h), gen, b))
             log(f"[kernels] attention {json.dumps(attn_rows[-1])}")
@@ -2243,6 +2605,17 @@ def main():
                             kind, k4, bwd).values()), key, fb, s4_per, peak_flops=peak)
         entry["stage4_step"] = {f: sub[f] for f in ("per", "launches", "ms", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms")}
+    # K1 and K2 over one XL 512px CFG forward of the eval path (onehot, K2 at k = 256)
+    ev_per = ("one XL 512px CFG forward (B=8) of the eval path (generate_images, onehot, "
+              "fused adaLN off), summed over its calls")
+    sub = summarize(kernels[0]["name"], kernels[0]["source"], ATTN_REPLACES, attn_rows,
+                    ev["rec"].shapes["attention"], ev["launches"]["attention"], attn_key,
+                    attn_flops_bytes, ev_per)
+    kernels[0]["eval_512_forward"] = {f: sub[f] for f in (
+        "per", "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    kernels.append(summarize("moe_ffn (512px eval)", kernels[1]["source"], MOE_REPLACES,
+                             ev["moe_rows"], ev["rec"].shapes["moe"], ev["launches"]["moe"],
+                             moe_key, moe_flops_bytes, ev_per))
     log(f"[slice] sampler {res['sampler_ms']:.1f} ms for {PROMPTS} images, "
         f"{res['img_per_s']:.4f} img/s at 256px; latents std {res['latents_std']:.4f}")
     log(f"[train] stage 1 mb {TRAIN_MB}: {tr['ms_per_step']:.1f} ms/step, "

@@ -1,4 +1,5 @@
-"""Weights into the port's DiT: from a JAX (flax) params tree or a reference .pt file.
+"""Weights into the port's DiT: from a JAX (flax) params tree, a reference .pt file or
+a checkpoint of the port's trainer (``load_any_checkpoint``).
 
 Own copy of the name/layout mapping of micro_diffusion_tpu/models/interop.py
 (params_to_torch_state_dict, :104; load_torch_checkpoint, :166), working on
@@ -17,6 +18,7 @@ numpy arrays:
 neither produced nor loaded.
 """
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -112,10 +114,38 @@ def load_torch_checkpoint(path: str, module: torch.nn.Module | None = None,
     return out
 
 
-# ------------------------------------------------- frozen encoders (CLIP, T5, VAE)
+def load_any_checkpoint(path: str, module: torch.nn.Module | None = None,
+                        strict: bool = True) -> Dict[str, torch.Tensor]:
+    """DiT weights from a reference ``.pt`` file (``load_torch_checkpoint``) or from a
+    checkpoint of the port's trainer (its ``checkpoint.pt``, a step directory or a
+    folder of them, the latest step): ``ema_params`` when the checkpoint has them,
+    else ``params``, as the JAX package prefers its trainer's EMA for eval. Loaded
+    into ``module`` too when one is given. An orbax (JAX) checkpoint directory
+    raises: convert it to a reference ``.pt`` with the JAX package first."""
+    if os.path.isdir(path):
+        from ..train.trainer import find_checkpoint  # the trainer imports this module
+
+        try:
+            path = find_checkpoint(path)
+        except ValueError as err:
+            raise ValueError(
+                f"{err}. Restore it with the JAX package and write a reference .pt "
+                "through micro_diffusion_tpu/models/interop.py params_to_torch_state_dict "
+                "(the orbax converter of ROADMAP queue A item 2)") from err
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(ckpt, dict) and "step" in ckpt and isinstance(ckpt.get("params"), dict)):
+        return load_torch_checkpoint(path, module, strict)
+    out = ckpt.get("ema_params") or ckpt["params"]
+    if module is not None:
+        load_numpy_state_dict(module, out, strict)
+    return out
+
+
+# ------------------------------------------ frozen encoders (CLIP, T5, VAE, CLIP vision)
 # Inverses of the JAX package's clip_torch_to_params (text_encoders.py:119),
-# t5_torch_to_params (:284) and vae_torch_to_params (vae.py:339), on numpy arrays:
-# flax trees -> the checkpoints' names, which the port's modules carry.
+# t5_torch_to_params (:284), vae_torch_to_params (vae.py:339) and
+# clip_vision_torch_to_params (clip_zero_shot.py:132), on numpy arrays: flax trees ->
+# the checkpoints' names, which the port's modules carry.
 
 
 def _leaf(name: str, arr: np.ndarray) -> tuple:
@@ -198,4 +228,33 @@ def vae_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
         out[".".join([_vae_module_name(t) for t in path[:-1]] + [name])] = arr
 
     visit(params.get("params", params), [])
+    return out
+
+
+def clip_vision_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX CLIPVisionTransformer params -> HF ``CLIPVisionModel`` names (those of its
+    ``vision_model``): the patch conv (kh, kw, in, out) -> (out, in, kh, kw), the
+    fused in_proj split into q/k/v, HF's own spelling ``pre_layrnorm``."""
+    p = params.get("params", params)
+    out = {"embeddings.patch_embedding.weight":
+               np.asarray(p["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1),
+           "embeddings.class_embedding": np.asarray(p["class_embedding"]),
+           "embeddings.position_embedding.weight": np.asarray(p["position_embedding"])}
+    sub = {"ln_1": "layer_norm1", "ln_2": "layer_norm2", "attn_out_proj": "self_attn.out_proj",
+           "mlp_c_fc": "mlp.fc1", "mlp_c_proj": "mlp.fc2"}
+    for mod, leaves in p.items():
+        if mod in ("pre_layernorm", "post_layernorm"):
+            dst = "pre_layrnorm" if mod == "pre_layernorm" else mod
+        elif mod.startswith("resblocks_"):
+            _, i, rest = mod.split("_", 2)
+            dst = f"encoder.layers.{i}.{sub.get(rest, rest)}"
+        else:
+            continue
+        for leaf, arr in leaves.items():
+            name, arr = _leaf(leaf, np.asarray(arr))
+            if dst.endswith("attn_in_proj"):  # (3W[, W]) -> q, k, v
+                for x, part in zip("qkv", np.split(arr, 3, axis=0)):
+                    out[f"{dst[:-len('attn_in_proj')]}self_attn.{x}_proj.{name}"] = part
+            else:
+                out[f"{dst}.{name}"] = arr
     return out

@@ -22,12 +22,16 @@ class Logger:
     def log_scalars(self, scalars: Dict[str, float], step: int) -> None:
         raise NotImplementedError
 
+    def log_images(self, name: str, images: np.ndarray, step: int) -> None:
+        """An image (C, H, W) or images (N, C, H, W) in [0, 1]; dropped unless the
+        logger keeps images."""
+
     def close(self) -> None:
         pass
 
 
 class JSONLLogger(Logger):
-    """One JSON object per call: {"step": n, <name>: value, ...}."""
+    """One JSON object per call: {"step": n, <name>: value, ...}; no images."""
 
     def __init__(self, path: str = "./metrics.jsonl", **_: Any):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -42,8 +46,8 @@ class JSONLLogger(Logger):
 
 
 class TensorboardLogger(Logger):
-    """Tensorboard event files under ``log_dir``; ``metrics.jsonl`` there when
-    tensorboard is not installed."""
+    """Tensorboard event files under ``log_dir`` (scalars and images);
+    ``metrics.jsonl`` there, without the images, when tensorboard is not installed."""
 
     def __init__(self, log_dir: Optional[str] = None, **_: Any):
         self.log_dir = log_dir or "./runs"
@@ -62,6 +66,15 @@ class TensorboardLogger(Logger):
             return
         for k, v in scalars.items():
             self._writer.add_scalar(k, v, step)
+
+    def log_images(self, name: str, images: np.ndarray, step: int) -> None:
+        if self._writer is None:
+            return
+        arr = np.asarray(images)
+        if arr.ndim == 3:  # (C, H, W)
+            self._writer.add_image(name, arr, step)
+        else:  # (N, C, H, W)
+            self._writer.add_images(name, arr, step)
 
     def close(self) -> None:
         if self._writer is not None:
@@ -162,14 +175,16 @@ class NaNCatcher(Callback):
 
 
 class LogDiffusionImages(Callback):
-    """Sample the fixed prompts at each eval (reference callbacks.py:9-44).
+    """Sample the fixed prompts at each eval with the eval weights (the EMA when
+    there is one) (reference callbacks.py:9-44, JAX train/callbacks.py:210-246).
 
-    It samples from precomputed prompt embeddings, not through an attached text
-    encoder and VAE as the JAX callback can (ROADMAP queue A item 4),
-    ``prompt_latents_path`` (an .npy of shape
-    (P, 1, L, D) or (P, L, D)), with the eval weights (the EMA when there is one),
-    and logs the latents' standard deviation. Without that file it warns once and
-    logs nothing.
+    With a tokenizer and a text encoder attached to the model it samples
+    ``prompts`` through them; otherwise from the precomputed embeddings in
+    ``prompt_latents_path`` (an .npy of shape (P, 1, L, D) or (P, L, D)). With a VAE
+    attached it decodes, and hands each image (3, H, W) in [0, 1] to every logger's
+    ``log_images`` under its prompt's first 100 characters (``prompt_i`` when driven
+    by embeddings without prompts); without one it logs the latents' standard
+    deviation. With neither prompts route it warns once and logs nothing.
     """
 
     def __init__(self, prompts: Optional[Sequence[str]] = None,
@@ -189,16 +204,27 @@ class LogDiffusionImages(Callback):
         self._warned = False
 
     def eval_end(self, trainer, eval_loss) -> None:
-        if not (self.prompt_latents_path and os.path.exists(self.prompt_latents_path)):
+        model = trainer.model
+        kwargs: Dict[str, Any] = {}
+        if model.tokenizer is not None and model.text_encoder is not None:
+            kwargs["prompt"] = self.prompts
+        elif self.prompt_latents_path and os.path.exists(self.prompt_latents_path):
+            kwargs["text_embeddings"] = np.load(self.prompt_latents_path)
+        else:
             if not self._warned:
-                trainer.print("LogDiffusionImages: no prompt_latents_path; skipping "
-                              "image logging")
+                trainer.print("LogDiffusionImages: no text encoder/tokenizer and no "
+                              "prompt_latents_path; skipping image logging")
                 self._warned = True
             return
-        emb = np.load(self.prompt_latents_path)
         with trainer.eval_weights():
-            latents = trainer.model.generate(
-                text_embeddings=emb, guidance_scale=self.guidance_scale,
-                num_inference_steps=self.sampling_steps, seed=self.seed,
-                return_only_latents=True)
-        trainer.log({"images/latent_std": float(latents.float().std())})
+            out = model.generate(guidance_scale=self.guidance_scale,
+                                 num_inference_steps=self.sampling_steps, seed=self.seed,
+                                 return_only_latents=model.vae is None, **kwargs)
+        if model.vae is None:
+            trainer.log({"images/latent_std": float(out.float().std())})
+            return
+        images = out.float().cpu().numpy()
+        names = self.prompts or [f"prompt_{i}" for i in range(images.shape[0])]
+        for i, prompt in enumerate(names[:images.shape[0]]):
+            for logger in trainer.loggers:
+                logger.log_images(prompt[:100], images[i], int(trainer.global_step))

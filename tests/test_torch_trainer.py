@@ -12,6 +12,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import numpy as np
@@ -204,12 +205,17 @@ def test_recipes_and_overlays_load():
         assert model.dit.blocks[1].mlp.dispatch == dispatch[stage]
         assert model.dit.blocks[0].norm1.fused_adaln
     # a JAX target resolves to the port's module of the same name once it is ported
-    # (the VAE since slice 6), and raises while it is not (the CLIP vision tower)
+    # (the VAE since slice 6, the CLIP vision tower since slice 7), and raises while it
+    # is not (the profiling helpers)
+    from micro_diffusion_tpu_torch.models.clip_zero_shot import CLIPVisionTransformer
     from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
     assert tconfig.resolve_target("micro_diffusion_tpu.models.vae.AutoencoderKL") \
         is AutoencoderKL
+    assert tconfig.resolve_target(
+        "micro_diffusion_tpu.models.clip_zero_shot.CLIPVisionTransformer") \
+        is CLIPVisionTransformer
     for bad in ("os.system",
-                "micro_diffusion_tpu.models.clip_zero_shot.CLIPVisionTransformer",
+                "micro_diffusion_tpu.utils.profiling.StepTimer",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
         with pytest.raises(ValueError, match="no counterpart"):
             tconfig.resolve_target(bad)
@@ -598,6 +604,7 @@ def test_callbacks_and_loggers(tmp_path):
 
     class Stub:
         global_step, printed, logged = 7, [], []
+        model = types.SimpleNamespace(tokenizer=None, text_encoder=None, vae=None)
 
         def print(self, msg):
             self.printed.append(msg)

@@ -87,6 +87,16 @@ Phases, each of which fails the run on a failed check:
                ViT-L/14 snapshot (random weights) through CLIPZeroShot, card vs CPU,
                the encode rate; the GenEval CLIP colour judge and scorer on the 4
                images; the FID-30K wall-clock estimate.
+     precompute - the latent precompute through the port's precompute(): 128 seeded
+               600 x 560 JPEGs in an image MDS -> caption latents (the CLIP-H text
+               tower of [serve], bf16) and SDXL VAE latents at 256 and 512px (fp32
+               compute with the [serve] VAE's weights, cuDNN TF32 on as the CLI runs),
+               batch 32, rank 0 of 1: 128 written and 0 skipped, the merged index,
+               every latent finite at its shape, the latents loader reading a batch
+               at each size, one 256px encode on the card against the CPU (TF32 on
+               and off), no DiT kernel launched; the rate over batches 2-4, ms per
+               image of each stage, the peak, one more batch under the port's
+               profile_trace (device-busy share) and the 37M-image estimate.
   9. chain   - MicroDiT-Tiny through the stage handoffs: stage 2 (256px) saves,
                stage 3 loads its weights only across the pos_embed change (1024
                tokens) and saves, stage 4 loads stage 3's full state (bitwise
@@ -225,6 +235,16 @@ CLIP_L14 = {  # openai/clip-vit-large-patch14's widths (upstream GenEval's colou
              "hidden_act": "quick_gelu"},
     "projection_dim": 768,
 }
+PRECOMPUTE_IMAGES = 128  # [precompute]: 4 batches of 32 (the CLI's default batch)
+PRECOMPUTE_BATCH = 32
+PRECOMPUTE_SIZES = (256, 512)
+PRECOMPUTE_WH = (600, 560)  # larger than 512 on both sides: both centre crops are real
+TRAINING_IMAGES = 37e6  # the reference's training set, paid once (SURVEY.md §1, L6)
+ENCODE_FP32_TOL = 1e-4  # relative L2 of a 256px SDXL encode_mode, card vs CPU, fp32 with
+                        # TF32 off: ~25 convolutions summed in other orders (2^-24 an
+                        # operation), far below it
+ENCODE_TF32_TOL = 1e-2  # the same with cuDNN's TF32 on, as the CLI runs: each conv
+                        # operand rounded to 10 mantissa bits (2^-11 of a value)
 
 
 def log(msg):
@@ -1416,6 +1436,253 @@ def run_eval(enc, tmp, gen):
     return out
 
 
+# ------------------------------------------------------------------ precompute
+
+
+def write_image_mds(dirname, n, seed):
+    """``n`` seeded PRECOMPUTE_WH JPEGs (smooth colour fields with fine noise, so that
+    they compress as photographs do) in an image MDS with the columns the JAX
+    package's convert.py writes (width, height, jpg, caption), captions from the
+    script's caption lists."""
+    import numpy as np
+    from PIL import Image
+    from micro_diffusion_tpu_torch.datasets.mds import MDSWriter
+
+    w, h = PRECOMPUTE_WH
+    captions = SERVE_CAPTIONS + eval_captions(EVAL_PROMPTS)
+    rng = np.random.default_rng(seed)
+    columns = {"width": "int32", "height": "int32", "jpg": "jpeg", "caption": "str"}
+    with MDSWriter(out=dirname, columns=columns) as writer:
+        for i in range(n):
+            field = Image.fromarray(rng.integers(0, 256, (h // 40, w // 40, 3), np.uint8))
+            arr = np.asarray(field.resize((w, h), Image.BICUBIC), np.int16)
+            arr = arr + rng.integers(-8, 9, arr.shape, dtype=np.int16)
+            img = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+            writer.write({"width": w, "height": h, "jpg": img,
+                          "caption": captions[i % len(captions)]})
+
+
+class PrecomputeProbe:
+    """Times the stages of a ``precompute`` call by wrapping its calls: the host
+    stage (MDS read, JPEG decode and both resizes: ``PrecomputeImageDataset
+    .__getitem__``), tokenize, text encode, the VAE encode at each size and the write
+    (to the host in fp16 and into the MDS writer: ``_write_batch``); the device ones
+    run between torch.cuda.synchronize() boundaries. A StepTimer closes each batch at
+    the return of ``_encode_and_write``: ``timer.times[b]`` is batch b's wall time,
+    its host reads included."""
+
+    def __init__(self, timer, tokenizer, text_encoder, vae):
+        from micro_diffusion_tpu_torch.datasets.prepare import common, precompute
+
+        self.timer = timer
+        self.batches = [collections.defaultdict(float)]
+        self.sites = [(common.PrecomputeImageDataset, "__getitem__", "host", False),
+                      (tokenizer, "tokenize", "tokenize", False),
+                      (text_encoder, "encode", "text_encode", True),
+                      (vae, "encode", "vae", True),
+                      (precompute, "_write_batch", "write", True),
+                      (precompute, "_encode_and_write", None, False)]
+        self.saved = []
+
+    def _wrap(self, fn, stage, sync):
+        import torch
+
+        def timed(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if stage is None:  # the end of a batch
+                self.timer.stop()
+                self.timer.start()
+                self.batches.append(collections.defaultdict(float))
+                return out
+            if sync:
+                torch.cuda.synchronize()
+            key = stage if stage != "vae" else f"vae_{args[0].shape[-1]}"
+            self.batches[-1][key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+    def __enter__(self):
+        for obj, name, stage, sync in self.sites:
+            self.saved.append((obj, name, obj.__dict__.get(name)))
+            setattr(obj, name, self._wrap(getattr(obj, name), stage, sync))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self.saved:
+            if orig is None:  # the instance's wrapper; the class's method is back
+                delattr(obj, name)
+            else:  # a class's or a module's own function
+                setattr(obj, name, orig)
+        self.batches.pop()  # opened by the last batch's end
+
+
+@contextlib.contextmanager
+def cudnn_tf32(enabled):
+    """cuDNN's TF32 switch for a block, restored after it."""
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def run_precompute(enc, tmp):
+    """The latent precompute through the port's ``precompute``: PRECOMPUTE_IMAGES
+    seeded images -> caption latents (the CLIP-H tower of ``enc``, bf16) and SDXL VAE
+    latents at 256 and 512px (an fp32-compute VAE with ``enc``'s weights, cuDNN's TF32
+    on as the CLI runs it: PyTorch's default), rank 0 of 1, batch PRECOMPUTE_BATCH.
+    Checks the output, reads it back through the latents loader, holds one encode on
+    the card against the CPU, times the stages, profiles one more batch."""
+    import numpy as np
+    import torch
+    from micro_diffusion_tpu_torch.datasets.latents_loader import (
+        build_streaming_latents_dataloader)
+    from micro_diffusion_tpu_torch.datasets.mds import MDSReader
+    from micro_diffusion_tpu_torch.datasets.prepare import common, precompute
+    from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+    from micro_diffusion_tpu_torch.utils.profiling import StepTimer, profile_trace
+
+    t0 = time.perf_counter()
+    src, out = os.path.join(tmp, "precompute_images"), os.path.join(tmp, "precompute_latents")
+    write_image_mds(src, PRECOMPUTE_IMAGES, SEED + 30)
+    log(f"[precompute] {PRECOMPUTE_IMAGES} seeded {PRECOMPUTE_WH[0]} x {PRECOMPUTE_WH[1]} "
+        f"JPEGs ({sum(os.path.getsize(os.path.join(src, f)) for f in os.listdir(src)) / 2**20:.1f}"
+        f" MiB of MDS) written in {time.perf_counter() - t0:.1f} s")
+    text_encoder, tokenizer = enc["text_encoder"], enc["tokenizer"]
+    vae = AutoencoderKL(compute_dtype=torch.float32, device="cuda")
+    vae.load_state_dict(enc["vae"].state_dict())
+
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with cudnn_tf32(True), PrecomputeProbe(timer, tokenizer, text_encoder, vae) as probe:
+        reset_counts()
+        t0 = time.perf_counter()
+        timer.start()
+        counts = precompute.precompute([src], out, vae, text_encoder, tokenizer,
+                                       batch_size=PRECOMPUTE_BATCH,
+                                       resize_sizes=PRECOMPUTE_SIZES, process_index=0,
+                                       process_count=1, seed=SEED)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_batches = PRECOMPUTE_IMAGES // PRECOMPUTE_BATCH
+    if tuple(counts) != (PRECOMPUTE_IMAGES, 0) or len(timer.times) != n_batches:
+        raise AssertionError(f"[precompute] wrote {counts.written}, skipped "
+                             f"{counts.skipped} batches, {len(timer.times)} batches timed")
+    if any(launches.values()):
+        raise AssertionError(f"[precompute] the path launched DiT kernels: {launches}")
+
+    # the output: merged index, every latent finite at its shape, fp16
+    with open(os.path.join(out, "index.json")) as f:
+        index = json.load(f)
+    reader = MDSReader(out)
+    if sum(s["samples"] for s in index["shards"]) != PRECOMPUTE_IMAGES or len(reader) != \
+            PRECOMPUTE_IMAGES:
+        raise AssertionError(f"[precompute] index.json lists {index['shards']}")
+    want = {"caption_latents": 77 * 1024, **{f"latents_{s}": 4 * (s // 8) ** 2
+                                             for s in PRECOMPUTE_SIZES}}
+    for i in range(PRECOMPUTE_IMAGES):
+        sample = reader[i]
+        for col, size in want.items():
+            arr = np.frombuffer(sample[col], np.float16)
+            if arr.size != size or not np.isfinite(arr).all():
+                raise AssertionError(f"[precompute] sample {i} {col}: {arr.size} values "
+                                     f"(want {size}), finite {np.isfinite(arr).all()}")
+    for size in PRECOMPUTE_SIZES:
+        dl = build_streaming_latents_dataloader(out, batch_size=PRECOMPUTE_BATCH,
+                                                image_size=size, cap_seq_size=77,
+                                                cap_emb_dim=1024, shuffle=False,
+                                                num_epochs=1)
+        batch = next(iter(dl))
+        lat, cap = batch["image_latents"], batch["caption_latents"]
+        if (lat.shape != (PRECOMPUTE_BATCH, 4, size // 8, size // 8) or lat.dtype != np.float16
+                or cap.shape != (PRECOMPUTE_BATCH, 1, 77, 1024) or not np.isfinite(lat).all()):
+            raise AssertionError(f"[precompute] loader at {size}px: {lat.shape} {lat.dtype}, "
+                                 f"{cap.shape}")
+    log(f"[precompute] {counts.written} written, {counts.skipped} batches skipped; "
+        f"index.json merged ({len(index['shards'])} shard); every latent finite at "
+        f"(4, 32, 32) / (4, 64, 64), caption latents 77 x 1024 fp16; the loader read a "
+        f"batch of {PRECOMPUTE_BATCH} at 256 and at 512px; DiT kernel launches "
+        f"{sum(launches.values())}")
+
+    # one 256px image's encode_mode on the card against the CPU, fp32
+    image = common.PrecomputeImageDataset([src], resize_sizes=(256,))[0]["image_256"]
+    x = torch.from_numpy(np.stack([image]))
+    vae_cpu = AutoencoderKL(compute_dtype=torch.float32, device="cpu")
+    vae_cpu.load_state_dict(vae.state_dict())
+    ref = vae_cpu.encode_mode(x)
+    rel = {}
+    for tf32 in (True, False):
+        with cudnn_tf32(tf32):
+            got = vae.encode_mode(x).cpu()
+        rel[tf32] = ((got - ref).norm() / ref.norm()).item()
+    log(f"[precompute] 256px encode_mode, card vs CPU fp32: rel L2 {rel[True]:.3e} with "
+        f"cuDNN TF32 on (tol {ENCODE_TF32_TOL}), {rel[False]:.3e} off (tol {ENCODE_FP32_TOL})")
+    if not (rel[True] <= ENCODE_TF32_TOL and rel[False] <= ENCODE_FP32_TOL):
+        raise AssertionError(f"[precompute] encode card vs CPU rel L2 {rel}")
+    del vae_cpu
+
+    # one more batch (rank 1 of 4: images 32-63, no merge) under the profiler
+    with cudnn_tf32(True), profile_trace(os.path.join(tmp, "precompute_trace")) as prof:
+        t0 = time.perf_counter()
+        extra = precompute.precompute([src], os.path.join(tmp, "precompute_profiled"), vae,
+                                      text_encoder, tokenizer, batch_size=PRECOMPUTE_BATCH,
+                                      resize_sizes=PRECOMPUTE_SIZES, process_index=1,
+                                      process_count=4, seed=SEED)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    if tuple(extra) != (PRECOMPUTE_BATCH, 0) or not os.path.getsize(prof.trace_path):
+        raise AssertionError(f"[precompute] profiled batch {extra}, trace {prof.trace_path}")
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_share = busy / prof_wall if busy > 0 else None
+
+    # one 512px batch's VAE encode with TF32 off, for the cost of the stricter setting
+    src_reader = MDSReader(src)
+    imgs = torch.from_numpy(np.stack([common.resize_center_crop(src_reader[i]["jpg"], 512)
+                                      for i in range(PRECOMPUTE_BATCH)]))
+    with cudnn_tf32(False):
+        vae.encode(imgs, generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vae.encode(imgs, generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        fp32_512 = (time.perf_counter() - t0) * 1e3 / PRECOMPUTE_BATCH
+
+    timed = probe.batches[1:]
+    n_timed = PRECOMPUTE_BATCH * len(timed)
+    rate = n_timed / sum(timer.times[1:])
+    stages = ("host", "tokenize", "text_encode", *(f"vae_{s}" for s in PRECOMPUTE_SIZES),
+              "write")
+    per = {stage: sum(b[stage] for b in timed) / n_timed for stage in stages}
+    res = dict(img_per_s=rate, ms_per_image=per, batch_s=timer.times, wall_s=wall,
+               peak_gib=peak, busy_ms=busy, profiled_wall_ms=prof_wall,
+               busy_share=busy_share, encode_rel_l2_tf32=rel[True],
+               encode_rel_l2_fp32=rel[False], vae_512_fp32_ms_per_image=fp32_512,
+               estimate_37m_h=TRAINING_IMAGES / rate / 3600)
+    log(f"[precompute] {rate:.2f} img/s end to end over batches 2-{n_batches} (batch "
+        f"times {', '.join(f'{t:.3f}' for t in timer.times)} s; the whole call {wall:.2f} s); "
+        f"ms per image: host read + decode + both resizes {per['host']:.2f}, tokenize "
+        f"{per['tokenize']:.3f}, text encode {per['text_encode']:.3f}, VAE encode 256 "
+        f"{per['vae_256']:.2f}, VAE encode 512 {per['vae_512']:.2f}, write "
+        f"{per['write']:.3f}; peak {peak:.2f} GiB")
+    log(f"[precompute] profiled batch (rank 1 of 4): wall {prof_wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, busy share "
+        f"{'not measured' if busy_share is None else f'{busy_share:.3f}'}; trace "
+        f"{os.path.basename(prof.trace_path)}; VAE encode 512 with TF32 off "
+        f"{fp32_512:.2f} ms per image")
+    log(f"[precompute] estimate (37e6 / the rate, not measured) for the 37M-image "
+        f"training set: {res['estimate_37m_h']:.1f} h on one card ({smi_line()})")
+    return res
+
+
 # ------------------------------------------------------------------ train
 
 
@@ -2441,10 +2708,16 @@ def main():
         # ---- the evaluation path at 512px: images -> FID and GenEval
         t_phase = time.perf_counter()
         ev = run_eval(enc, tmp, torch.Generator(device="cuda").manual_seed(SEED + 20))
+        free_memory()
+        log(f"[phase] eval {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- the latent precompute: image MDS -> caption and VAE latents
+        t_phase = time.perf_counter()
+        pc = run_precompute(enc, tmp)
         del enc
         tok_dir.cleanup()
         free_memory()
-        log(f"[phase] eval {time.perf_counter() - t_phase:.1f} s")
+        log(f"[phase] precompute {time.perf_counter() - t_phase:.1f} s")
 
         # ---- 9. the Tiny stage chain 2 -> 3 -> 4
         t_phase = time.perf_counter()
@@ -2658,6 +2931,7 @@ def main():
             f"(latents only {base:.4f}); ms per image {json.dumps(run['ms_per_image'])}, "
             f"decode share {run['decode_share']:.4f}, peak {run['peak_gib']:.2f} GiB")
     log(f"[serve] {json.dumps(dict(serve_256=s256, serve_512=sv, t5=t5))}")
+    log(f"[precompute] {json.dumps(pc)}")
     log(f"[phase] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

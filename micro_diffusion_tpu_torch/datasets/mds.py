@@ -1,5 +1,6 @@
-"""MDS shard format writer and reader, the port's own copy of
-micro_diffusion_tpu/datasets/mds.py (``MDSWriter`` :86, ``MDSReader`` :188).
+"""MDS shard format writer, reader and index merge, the port's own copy of
+micro_diffusion_tpu/datasets/mds.py (``MDSWriter`` :86, ``MDSReader`` :188,
+``merge_index`` :287).
 
 Binary- and index-compatible with mosaicml-streaming's MDS format, the
 reference's data interchange format, so shards written by either package (or by
@@ -13,15 +14,15 @@ streaming) read in the other:
 
 Encodings: bytes, str, jpeg, png, int, int32, int64, uint32, float32, json. The
 reader memory-maps the shards; ``read_many`` gathers blobs from the maps (the JAX
-package's native parallel-pread gather, host C++, is not ported: ROADMAP queue A
-item 5).
+package's native parallel-pread gather, host C++, is not ported: ROADMAP queue A,
+the native MDS gather).
 """
 
 import io
 import json
 import os
 import struct
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -226,3 +227,27 @@ class MDSReader:
             blob = self._shard_data(shard_idx)[begin:end].tobytes()
             out.append(self._decode_sample(self.shards[shard_idx], blob))
         return out
+
+
+def merge_index(root: str, subdirs: Optional[Sequence[str]] = None) -> None:
+    """Merge per-rank sub-directory indexes into one root index.json, rewriting shard
+    basenames as '<subdir>/<basename>' (streaming.base.util.merge_index parity;
+    reference precompute.py:242-248). The subdirectories go in ``sorted()`` order of
+    their names, as in the JAX package: "10" before "2"."""
+    if subdirs is None:
+        subdirs = sorted(
+            d for d in os.listdir(root)
+            if os.path.isdir(os.path.join(root, d))
+            and os.path.exists(os.path.join(root, d, "index.json")))
+    shards = []
+    for sub in subdirs:
+        with open(os.path.join(root, sub, "index.json")) as f:
+            index = json.load(f)
+        for s in index["shards"]:
+            s = dict(s)
+            rd = dict(s["raw_data"])
+            rd["basename"] = os.path.join(sub, rd["basename"])
+            s["raw_data"] = rd
+            shards.append(s)
+    with open(os.path.join(root, "index.json"), "w") as f:
+        json.dump({"version": 2, "shards": shards}, f)

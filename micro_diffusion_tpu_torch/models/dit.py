@@ -189,7 +189,7 @@ class DiT(nn.Module):
         if remat and remat_policy not in _REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat policy {remat_policy!r} is not ported; only "
-                f"{_REMAT_POLICIES} are (ROADMAP queue A, item 2)")
+                f"{_REMAT_POLICIES} are (README.md, 'Not ported'; ROADMAP queue A)")
         self.remat = remat
         self.remat_policy = remat_policy
         self.input_size = input_size

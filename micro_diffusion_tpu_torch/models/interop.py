@@ -1,9 +1,10 @@
 """Weights into the port's DiT: from a JAX (flax) params tree, a reference .pt file or
-a checkpoint of the port's trainer (``load_any_checkpoint``).
+a checkpoint of the port's trainer (``load_any_checkpoint``); and back out to a flax
+params tree (``torch_state_dict_to_params``, for models/convert_checkpoint.py).
 
 Own copy of the name/layout mapping of micro_diffusion_tpu/models/interop.py
-(params_to_torch_state_dict, :104; load_torch_checkpoint, :166), working on
-numpy arrays:
+(_flax_path_tokens, :35; torch_state_dict_to_params, :60; params_to_torch_state_dict,
+:104; load_torch_checkpoint, :166), working on numpy arrays:
 
     blocks_3/*                 -> blocks.3.*
     patch_mixer_2/*            -> patch_mixer.2.*
@@ -61,6 +62,71 @@ def params_to_torch_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
     visit(params.get("params", params), [])
     return flat
+
+
+def _flax_path_tokens(torch_key: str) -> list[str]:
+    """Map a torch parameter name to the flax param-tree path (without kernel/weight)."""
+    parts = torch_key.split(".")
+    out: list[str] = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if p in ("blocks", "patch_mixer") and nxt is not None and nxt.isdigit():
+            out.append(f"{p}_{nxt}")
+            i += 2
+        elif p in ("mlp", "adaLN_modulation") and nxt is not None and nxt.isdigit():
+            # t_embedder.mlp.0 / adaLN_modulation.1 Sequential indices
+            out.append(f"{p}_{nxt}")
+            i += 2
+        elif p.startswith("patch_mixer_map") and nxt is not None and nxt.isdigit():
+            out.append(p)
+            out.append("norm" if nxt == "0" else "linear")
+            i += 2
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def _to_numpy(value: Any) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(value, dtype=np.float32)
+
+
+def torch_state_dict_to_params(state_dict: Dict[str, Any], strict: bool = True
+                               ) -> Dict[str, Any]:
+    """Convert a torch DiT state dict (numpy arrays or tensors) to a flax params dict
+    of float32 numpy arrays: the inner ``params`` tree (wrap as {'params': tree})."""
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        if key.split(".")[0] in SKIPPED_BUFFERS or key in SKIPPED_BUFFERS:
+            if "mask_token" in key and np.any(_to_numpy(value) != 0):
+                raise ValueError("checkpoint has a non-zero mask_token; the DiT folds it "
+                                 "out as a constant zero - conversion would change behavior")
+            continue
+        arr = _to_numpy(value)
+        path = _flax_path_tokens(key)
+        leaf_name = path[-1]
+        if leaf_name == "weight":
+            if arr.ndim == 4:  # conv (D, C, p, p) -> (p, p, C, D)
+                path[-1] = "kernel"
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:  # linear (out, in) -> (in, out)
+                path[-1] = "kernel"
+                arr = arr.T
+            # ndim == 1: LayerNorm weight, name stays "weight"
+        elif leaf_name == "bias" or (arr.ndim == 3 and leaf_name in ("w1", "w2")):
+            pass  # MoE expert tensors (e, d, f): layout identical
+        elif strict:
+            raise ValueError(f"unrecognized checkpoint key: {key} (shape {arr.shape})")
+
+        node = tree
+        for tok in path[:-1]:
+            node = node.setdefault(tok, {})
+        node[path[-1]] = arr
+    return tree
 
 
 def load_numpy_state_dict(module: torch.nn.Module, state_dict: Dict[str, Any],
@@ -131,7 +197,7 @@ def load_any_checkpoint(path: str, module: torch.nn.Module | None = None,
             raise ValueError(
                 f"{err}. Restore it with the JAX package and write a reference .pt "
                 "through micro_diffusion_tpu/models/interop.py params_to_torch_state_dict "
-                "(the orbax converter of ROADMAP queue A item 2)") from err
+                "(ROADMAP queue A, the orbax converter)") from err
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and "step" in ckpt and isinstance(ckpt.get("params"), dict)):
         return load_torch_checkpoint(path, module, strict)

@@ -165,7 +165,8 @@ class FeedForward(nn.Module):
         super().__init__()
         if remat_hidden:
             raise NotImplementedError(
-                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (README.md, 'Not ported'; "
+                "ROADMAP queue A)")
         hidden = self.rounded_hidden(hidden_dim, multiple_of)
         self.w1 = Linear(dim, hidden, use_bias, init=w1_init, dtype=dtype, device=device)
         self.w2 = Linear(dim, hidden, use_bias, init=w2_init, dtype=dtype, device=device)
@@ -219,7 +220,8 @@ class FeedForwardECMoe(nn.Module):
             raise ValueError(f"unknown moe_dispatch {dispatch!r}; one of {MOE_DISPATCH}")
         if remat_experts:
             raise NotImplementedError(
-                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (README.md, 'Not ported'; "
+                "ROADMAP queue A)")
         hidden = multiple_of * ((hidden_dim + multiple_of - 1) // multiple_of)
         self.num_experts = num_experts
         self.expert_capacity = expert_capacity
@@ -292,7 +294,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         if remat_proj:
             raise NotImplementedError(
-                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (README.md, 'Not ported'; "
+                "ROADMAP queue A)")
         hidden = hidden_dim or dim
         assert hidden % num_heads == 0
         self.num_heads = num_heads
@@ -327,7 +330,8 @@ class CrossAttention(nn.Module):
         super().__init__()
         if remat_proj:
             raise NotImplementedError(
-                "the lean remat policies are not ported (ROADMAP queue A, item 2)")
+                "the lean remat policies are not ported (README.md, 'Not ported'; "
+                "ROADMAP queue A)")
         hidden = hidden_dim or dim
         assert hidden % num_heads == 0
         self.num_heads = num_heads

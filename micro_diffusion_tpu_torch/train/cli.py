@@ -92,7 +92,7 @@ def main(argv: Optional[List[str]] = None, callbacks: Sequence[Callback] = ()) -
     args = parser.parse_args(argv)
     if args.multihost:
         raise ValueError("--multihost: the port's trainer runs on one device "
-                         "(ROADMAP queue A, item 6)")
+                         "(ROADMAP queue A, parallelism)")
     cfg = load_config(args.config_path, args.config_name, args.overrides)
     trainer = build_from_config(cfg, callbacks)
     try:

@@ -12,8 +12,8 @@ Counterpart of ``micro_diffusion_tpu/train/train_step.py`` (``TrainState``,
   * the random draws (sigma normal, noise, token mask) come from one
     ``torch.Generator`` in microbatch order, or are injected per microbatch.
 
-Not ported: ``param_flow_dtype`` (ROADMAP queue A item 9), ``grad_shardings``
-(queue A item 6), and the host-EMA placements (queue A item 9): the EMA is a plain
+Not ported: ``param_flow_dtype`` and the host-EMA placements (README.md, 'Not
+ported'), and ``grad_shardings`` (ROADMAP queue A, parallelism): the EMA is a plain
 tensor copy in the state, the ``in_state`` placement.
 """
 
@@ -79,10 +79,11 @@ def make_train_step(model, tx: AdamW, lr_schedule: Callable,
     if param_flow_dtype is not None:
         raise NotImplementedError(
             "param_flow_dtype is a TPU-memory workaround that is not ported "
-            "(ROADMAP queue A, item 9)")
+            "(README.md, 'Not ported'; ROADMAP queue A)")
     if grad_shardings is not None:
         raise NotImplementedError(
-            "grad_shardings needs the parallel layer, not ported yet (ROADMAP queue A, item 6)")
+            "grad_shardings needs the parallel layer, not ported yet (ROADMAP queue A, "
+            "parallelism)")
 
     def grads_of(params, mb, generator, draws_i):
         names = [n for n, p in params.items() if p.requires_grad]

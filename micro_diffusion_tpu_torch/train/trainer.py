@@ -21,8 +21,8 @@ an uninterrupted one and the checkpoint carries no generator state.
 
 Not ported, and raising ValueError: the TPU-memory workarounds (``accum_mode:
 dispatch``, ``param_flow_dtype``, the ``host_cadence``/``hostcompute`` EMA
-placements; ROADMAP queue A item 9), a mesh of more than one device (item 6) and
-loading an orbax (JAX) checkpoint directory.
+placements: README.md, 'Not ported'), a mesh of more than one device (ROADMAP queue
+A, parallelism) and loading an orbax (JAX) checkpoint directory.
 """
 
 import contextlib
@@ -125,13 +125,13 @@ class Trainer:
     ):
         if accum_mode != "scan":
             raise ValueError(f"accum_mode {accum_mode!r} is a TPU-memory workaround that is "
-                             "not ported; 'scan' is (ROADMAP queue A, item 9)")
+                             "not ported; 'scan' is (README.md, 'Not ported'; ROADMAP queue A)")
         if param_flow_dtype is not None:
             raise ValueError("param_flow_dtype is a TPU-memory workaround that is not "
-                             "ported (ROADMAP queue A, item 9)")
+                             "ported (README.md, 'Not ported'; ROADMAP queue A)")
         if mesh_shape and any(v not in (None, 1) for v in mesh_shape.values()):
             raise ValueError(f"mesh_shape {mesh_shape}: the port's trainer runs on one "
-                             "device (ROADMAP queue A, item 6)")
+                             "device (ROADMAP queue A, parallelism)")
         self.model = model
         self.device = next(model.parameters()).device
         if device is not None and torch.device(device).type != self.device.type:
@@ -162,7 +162,8 @@ class Trainer:
             placement = str(ema.get("placement", "in_state"))
             if placement != "in_state":
                 raise ValueError(f"EMA placement {placement!r} is a TPU-memory workaround "
-                                 "that is not ported; 'in_state' is (ROADMAP queue A, item 9)")
+                                 "that is not ported; 'in_state' is "
+                                 "(README.md, 'Not ported'; ROADMAP queue A)")
             self.ema_cfg = {
                 "smoothing": float(ema.get("smoothing", 0.9999)),
                 "ema_start": parse_duration(ema.get("ema_start", 0)),

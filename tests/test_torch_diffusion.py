@@ -88,5 +88,9 @@ def test_port_imports_no_jax():
         "assert 'micro_diffusion_tpu_torch.models.text_encoders' in sys.modules\n"
         "assert 'micro_diffusion_tpu_torch.models.vae' in sys.modules\n"
         "assert 'micro_diffusion_tpu_torch.train.train_step' in sys.modules\n"
+        "for m in ('datasets.prepare.precompute', 'datasets.prepare.common',\n"
+        "          'datasets.prepare.specs', 'datasets.captions',\n"
+        "          'models.convert_checkpoint', 'utils.profiling'):\n"
+        "    assert 'micro_diffusion_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

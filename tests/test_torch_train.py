@@ -249,7 +249,7 @@ def test_ema_update_matches_jax(step, start, interval):
 def test_train_state_and_unported_options():
     """EMA is a plain copy; the moments follow mu_dtype; the MoE matcher labels
     nothing by default (modules are named mlp) but is live; the TPU-only options
-    raise naming their ROADMAP items."""
+    raise naming the README record or their ROADMAP item."""
     model = tdiffusion.create_latent_diffusion(dit_arch="MicroDiT_Micro_2", latent_res=16,
                                                train_mask_ratio=0.75, device="cpu")
     named = dict(model.named_parameters())
@@ -262,10 +262,10 @@ def test_train_state_and_unported_options():
     assert state.opt_state.nu[key].dtype == torch.float32
     assert set(tx.labels.values()) == {"rest"}
     assert set(toptim._label_params(named, "mlp.w").values()) == {"rest", "moe"}
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Not ported"):
         ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4),
                                param_flow_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="parallelism"):
         ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4), grad_shardings={})
 
 

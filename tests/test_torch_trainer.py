@@ -205,17 +205,20 @@ def test_recipes_and_overlays_load():
         assert model.dit.blocks[1].mlp.dispatch == dispatch[stage]
         assert model.dit.blocks[0].norm1.fused_adaln
     # a JAX target resolves to the port's module of the same name once it is ported
-    # (the VAE since slice 6, the CLIP vision tower since slice 7), and raises while it
-    # is not (the profiling helpers)
+    # (the VAE since slice 6, the CLIP vision tower since slice 7, the profiling
+    # helpers since slice 8), and raises while it is not (the parallel layer)
     from micro_diffusion_tpu_torch.models.clip_zero_shot import CLIPVisionTransformer
     from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+    from micro_diffusion_tpu_torch.utils.profiling import StepTimer
     assert tconfig.resolve_target("micro_diffusion_tpu.models.vae.AutoencoderKL") \
         is AutoencoderKL
     assert tconfig.resolve_target(
         "micro_diffusion_tpu.models.clip_zero_shot.CLIPVisionTransformer") \
         is CLIPVisionTransformer
+    assert tconfig.resolve_target("micro_diffusion_tpu.utils.profiling.StepTimer") \
+        is StepTimer
     for bad in ("os.system",
-                "micro_diffusion_tpu.utils.profiling.StepTimer",
+                "micro_diffusion_tpu.parallel.mesh.make_mesh",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
         with pytest.raises(ValueError, match="no counterpart"):
             tconfig.resolve_target(bad)
@@ -571,10 +574,10 @@ def test_train_e2e_script_chains_the_four_stages(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(accum_mode="dispatch"), "item 9"),
-    (dict(param_flow_dtype="bfloat16"), "item 9"),
-    (dict(ema_placement="hostcompute"), "item 9"),
-    (dict(mesh_shape={"data": 2}), "item 6"),
+    (dict(accum_mode="dispatch"), "Not ported"),
+    (dict(param_flow_dtype="bfloat16"), "Not ported"),
+    (dict(ema_placement="hostcompute"), "Not ported"),
+    (dict(mesh_shape={"data": 2}), "parallelism"),
     (dict(device="tpu"), "'cuda' or 'cpu'"),
     (dict(load_path="orbax"), "orbax"),
 ])

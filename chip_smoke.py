@@ -53,6 +53,16 @@ Phases, each of which fails the run on a failed check:
                trainer-vs-bare ratio).
   6. resume  - MicroDiT-Tiny through the entry point: 4 steps straight against 2
                steps, a checkpoint and an autoresume to 4; the parameters agree.
+     dist    - the XL stage-1 recipe through train.cli.main --multihost in a
+               one-rank NCCL group (the parallel layer: ZeRO-2 buckets, collectives
+               of size 1) on the [trainer] set with the EMA on: 3 steps with an XL
+               checkpoint at step 2, an autoresume from it in a fresh trainer
+               bitwise equal to the straight run at step 3, the losses and grad
+               norms equal to [trainer]'s within 1e-5, the launch counts, the save
+               and load seconds, the file's bytes, the peaks; then 2 gloo ranks on
+               this card (this script with --dist-rank): which collectives gloo takes
+               on CUDA tensors and, where it takes all, one step of XL at full width,
+               depth 4, at mesh (1, 2, 1) and (1, 1, 2) against one rank.
      stage2  - MicroDiT-XL stage 2 (256px, mask 0, mb 64, K = 4) through
                train.cli.main with the H100 overlay on the [trainer] set, as the
                overlay stands ('auto': K1, K2, K6) and with
@@ -60,14 +70,16 @@ Phases, each of which fails the run on a failed check:
                4 steps and one eval each with the launch counts checked; under
                'auto' one microbatch's gradient under every remat policy against
                'full' and bare steps under each ('full', 'dots', 'attn_moe',
-               'dots_attn_moe'); under 'flash_bthd' one microbatch's loss and whole
-               gradient through the kernels against the plain path, and bare steps.
+               'dots_attn_moe'; profiled under 'full' alone); under 'flash_bthd' one
+               microbatch's loss and whole gradient through the kernels against the
+               plain path, and bare steps.
   7. stage3  - MicroDiT-XL stage 3 (512px, mask 0.75, mb 32, K = 8, 'gather' with
                the expert-major kernel K3, fp32 EMA from step 2) through
                train.cli.main with the H100 overlay on a seeded synthetic 512px MDS
                set: 4 steps and one eval with the launch counts of every kernel
-               checked, then bare steps under remat 'dots' and 'full' (peaks, times,
-               profiles); two calls of a 'gather' MoE layer are bitwise equal.
+               checked, then bare steps under remat 'dots' and 'full' (peaks, times;
+               a profile under 'full', the overlay's policy); two calls of a
+               'gather' MoE layer are bitwise equal.
   8. stage4  - the same for stage 4 (mask 0, mb 16, K = 16), and one microbatch's
                loss and whole gradient through the kernels against the plain path.
      sample512 - a 30-step CFG-5 generate() of 2 prompts at 512px with the stage-4
@@ -177,6 +189,27 @@ TRAINER_SAMPLES = 1024  # synthetic train samples (166 KB each), 4 steps per epo
 EVAL_SAMPLES = 256
 RESUME_BATCH, RESUME_MB = 32, 16  # Tiny round trip: K = 2 microbatches per step
 RESUME_TOL = 1e-6  # relative L2 of all parameters, straight vs resumed
+DIST_STEPS, DIST_SAVE_AT = 3, 2  # [dist]: XL stage-1 steps, the checkpoint resumed
+DIST_EMA = 0.9999  # [dist] turns the EMA on (from step 1) so the checkpoint carries it
+DIST_TOL = 1e-5  # relative: [dist]'s losses and grad norms against [trainer]'s, and
+                 # the 2-rank gloo steps' against one rank's
+DIST_B_DEPTH, DIST_B_BATCH, DIST_B_MB = 4, 64, 32  # [dist gloo]: XL width, 4 blocks
+DIST_B_MESHES = ((1, 2, 1), (1, 1, 2))
+DIST_B_PARAM_TOL = {  # relative L2 of all updated parameters together, 2 ranks vs one
+    (1, 2, 1): 1e-6,  # ZeRO-2: the same microbatch gradients summed (bitwise here)
+    # expert parallelism: the forward is bitwise (the loss too), but in the backward
+    # each rank's input gradient of an EC-MoE block (its experts' and its gate
+    # share's) is already rounded to bf16 before the ranks' fp32 sum, where one rank
+    # rounds the whole sum; that difference flows into every layer before the
+    # block, and Adam's first step turns each sign change of a near-zero gradient
+    # entry into a move of up to 2 lr: 4.027e-5 on an H100 80GB HBM3 (700 W)
+    (1, 1, 2): 1e-4,
+}
+# relative L2 of each gate and expert leaf's first moment (a tenth of its clipped
+# gradient), 2 ranks vs one, leaf by leaf: a few bf16 roundings (2^-9 each) of
+# partial sums; a share that is summed wrongly or not at all moves it by O(1)
+DIST_B_MOE_GRAD_TOL = 1e-2
+DIST_B_TIMEOUT_S, DIST_B_GROUP_TIMEOUT_S = 600, 300
 EM_REPLACES = "micro_diffusion_tpu/ops/moe_ffn.py:439"      # _em_fwd (K3)
 EM_BWD_REPLACES = "micro_diffusion_tpu/ops/moe_ffn.py:458"  # _em_bwd (K3 backward)
 BH_REPLACES = "micro_diffusion_tpu/ops/flash_attention_bh.py:22"      # _fwd_kernel (K4)
@@ -1729,13 +1762,9 @@ def compare_train_grads(model, batch, gen, label="[train]"):
     """One microbatch's loss and whole gradient through the kernels and through the
     plain versions, with the same injected draws."""
     import torch
-    from micro_diffusion_tpu_torch.ops.masking import make_token_mask
 
-    b, _, res, _ = batch["image_latents"].shape
-    t = (res // model.dit.patch_size) ** 2
-    draws = dict(rnd_normal=torch.randn(b, 1, 1, 1, generator=gen, device="cuda"),
-                 noise=torch.randn(b, 4, res, res, generator=gen, device="cuda"),
-                 token_mask=make_token_mask(gen, b, t, model.train_mask_ratio))
+    b = batch["image_latents"].shape[0]
+    draws = model.train_draws(batch["image_latents"].shape, model.train_mask_ratio, gen)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def loss_and_grads():
@@ -1967,13 +1996,9 @@ def remat_grads_agree(model, batch, gen, label):
     the same order; 1e-6 relative L2 leaves room for a GEMM algorithm that sums
     otherwise). Returns {policy: relative L2}."""
     import torch
-    from micro_diffusion_tpu_torch.ops.masking import make_token_mask
 
-    b, _, res, _ = batch["image_latents"].shape
-    draws = dict(rnd_normal=torch.randn(b, 1, 1, 1, generator=gen, device="cuda"),
-                 noise=torch.randn(b, 4, res, res, generator=gen, device="cuda"),
-                 token_mask=make_token_mask(gen, b, (res // model.dit.patch_size) ** 2,
-                                            model.train_mask_ratio))
+    b = batch["image_latents"].shape[0]
+    draws = model.train_draws(batch["image_latents"].shape, model.train_mask_ratio, gen)
     params = [p for p in model.parameters() if p.requires_grad]
     policy = model.dit.remat_policy
 
@@ -2086,7 +2111,9 @@ def run_trainer(tmp):
         f"{trainer_ips / bare['img_per_s']:.3f}")
     return dict(launches=want, adaln_step=adaln_step, trainer_ips=trainer_ips,
                 bare=bare, bare_ips=bare["img_per_s"], ratio=trainer_ips / bare["img_per_s"],
-                waits=waits, fit_peak=fit_peak, policy=dit.remat_policy)
+                waits=waits, fit_peak=fit_peak, policy=dit.remat_policy, losses=losses,
+                norms=norms, ips=ips,
+                numel=sum(p.numel() for p in trainer.state.params.values()))
 
 
 def run_resume(tmp):
@@ -2137,6 +2164,349 @@ def run_resume(tmp):
     return dict(equal=equal, tensors=len(ref), rel=rel, max_abs=max_abs)
 
 
+# ------------------------------------------------------------ multi-GPU layer
+
+
+def dist_argv(tmp, save_folder, metrics_path, *extra):
+    return ["--multihost", "--config-path", OVERLAY, "--config-name", "res_256_pretrain",
+            f"dataset.train.datadir={os.path.join(tmp, 'train')}",
+            f"dataset.eval.datadir={os.path.join(tmp, 'eval')}",
+            f"trainer.max_duration={DIST_STEPS}ba", "trainer.metric_window=1",
+            "trainer.eval_interval=0", f"trainer.save_interval={DIST_SAVE_AT}ba",
+            "trainer.save_num_checkpoints_to_keep=2", f"trainer.save_folder={save_folder}",
+            f"algorithms.ema.smoothing={DIST_EMA}", "algorithms.ema.ema_start=1ba",
+            "callbacks.speed_monitor.window_size=1",
+            f"callbacks.image_monitor.prompts_file={PROMPTS_FILE}",
+            "logger.progress._target_=micro_diffusion_tpu_torch.train.callbacks.JSONLLogger",
+            f"logger.progress.path={metrics_path}", *extra]
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names, into):
+    """Wrap methods of ``cls`` to add each call's synchronised wall seconds to
+    ``into[name]``."""
+    import torch
+
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                into[name].append(time.perf_counter() - t0)
+        return timed
+
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield into
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def run_dist(tmp, tn):
+    """(a) The XL stage-1 recipe through ``cli.main --multihost`` in a one-rank NCCL
+    group (torchrun's variables set here) on the [trainer] set, with the EMA on:
+    3 steps with a save at 2 (and the final one), then an autoresume from step 2 in
+    a fresh trainer to step 3, bitwise equal to the straight run; losses and grad
+    norms against [trainer]'s no-group steps; the launch counts; the save and load
+    seconds, the file's bytes, the peak. (b) 2 gloo ranks on this card, when gloo
+    takes CUDA tensors (run_dist_gloo)."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from micro_diffusion_tpu_torch.parallel.dryrun import free_ports
+    from micro_diffusion_tpu_torch.train import cli
+    from micro_diffusion_tpu_torch.train.trainer import Trainer
+
+    ckpt = os.path.join(tmp, "dist_ckpt")
+    need = int(2.2 * 16 * tn["numel"])  # two files of fp32 params, mu, nu and EMA
+    free = shutil.disk_usage(tmp).free
+    log(f"[dist] {free / 1e9:.1f} GB free under {tmp}; the round trip needs "
+        f"{need / 1e9:.1f} GB (two checkpoints of {16 * tn['numel'] / 1e9:.2f} GB)")
+    if free < need:
+        raise AssertionError(f"[dist] {free / 1e9:.1f} GB free under {tmp}, "
+                             f"{need / 1e9:.1f} GB needed for two XL checkpoints")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_ports()[0])}
+    os.environ.update(env)
+    times = {"save": [], "_resume": []}
+    want = tn["launches"]
+    try:
+        with timed_methods(Trainer, ("save", "_resume"), times):
+            metrics_a = os.path.join(tmp, "dist_a.jsonl")
+            probe_a = TrainerProbe()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            a = cli.main(dist_argv(tmp, ckpt, metrics_a), callbacks=[probe_a])
+            wall_a = time.perf_counter() - t0
+            peak_a = torch.cuda.max_memory_allocated()
+            backend = dist.get_backend()
+            log(f"[dist] cli.main --multihost: backend {backend}, {a.mesh}, {DIST_STEPS} "
+                f"steps in {wall_a:.1f} s (model build and 2 saves included); peak "
+                f"{peak_a / 2**30:.2f} GiB")
+            if backend != "nccl" or a.mesh.size != 1 or a.zero is None:
+                raise AssertionError(f"[dist] not a one-rank NCCL group: {backend}, {a.mesh}")
+            file_bytes = os.path.getsize(os.path.join(ckpt, str(DIST_SAVE_AT), "checkpoint.pt"))
+            shutil.rmtree(os.path.join(ckpt, str(DIST_STEPS)))
+            probe_b = TrainerProbe()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            b = cli.main(dist_argv(tmp, ckpt, os.path.join(tmp, "dist_b.jsonl"),
+                                   "trainer.autoresume=true"), callbacks=[probe_b])
+            peak_b = torch.cuda.max_memory_allocated()
+        losses, norms, ips, _ = fit_metrics(metrics_a, DIST_STEPS, "[dist]", evals_want=0)
+        rel = [abs(x - y) / abs(y) for x, y in zip(losses + norms,
+                                                   tn["losses"][:DIST_STEPS] + tn["norms"][:DIST_STEPS])]
+        log(f"[dist] against [trainer]'s no-group steps: losses {tn['losses'][:DIST_STEPS]}, "
+            f"grad norms {tn['norms'][:DIST_STEPS]}; largest relative difference "
+            f"{max(rel):.3e} (tol {DIST_TOL})")
+        if max(rel) > DIST_TOL:
+            raise AssertionError(f"[dist] losses/norms differ from [trainer]'s by {max(rel)}")
+        log(f"[dist] launches per step {probe_a.steps}, resumed step {probe_b.steps}; "
+            f"expected {want}")
+        if probe_a.steps != [want] * DIST_STEPS or probe_b.steps != [want]:
+            raise AssertionError(f"[dist] launch counts {probe_a.steps} / {probe_b.steps} "
+                                 f"(want {want})")
+        sa, sb = a.state, b.state
+        pairs = {"params": (sa.params, sb.params), "mu": (sa.opt_state.mu, sb.opt_state.mu),
+                 "nu": (sa.opt_state.nu, sb.opt_state.nu),
+                 "ema": (sa.ema_params, sb.ema_params)}
+        equal = {k: sum(bool(torch.equal(x[n], y[n])) for n in x) for k, (x, y) in pairs.items()}
+        n = len(sa.params)
+        log(f"[dist] autoresume from step {DIST_SAVE_AT} to {sb.step} against the straight run "
+            f"at step {sa.step}: bitwise equal tensors {equal} of {n} each; count "
+            f"{sb.opt_state.count} / {sa.opt_state.count}")
+        if not (sb.step == sa.step == DIST_STEPS and all(v == n for v in equal.values())
+                and sb.opt_state.count == sa.opt_state.count):
+            raise AssertionError(f"[dist] resume not bitwise: {equal} of {n}")
+        trainer_ips = {s: tn["ips"][s] for s in sorted(tn["ips"]) if s <= DIST_STEPS}
+        log(f"[dist] images/s per step {ips} ([trainer], no group: {trainer_ips}; the "
+            f"time to step {DIST_SAVE_AT + 1} includes the save at {DIST_SAVE_AT}); saves "
+            f"{', '.join(f'{t:.1f}' for t in times['save'])} s (steps {DIST_SAVE_AT}, "
+            f"{DIST_STEPS}, then the resumed {DIST_STEPS}); load {times['_resume'][0]:.1f} s; "
+            f"file {file_bytes} bytes ({file_bytes / 1e9:.2f} GB); peaks {peak_a / 2**30:.2f} "
+            f"/ {peak_b / 2**30:.2f} GiB (straight / resumed, the straight run's state held)")
+        result = dict(losses=losses, norms=norms, ips=ips, trainer_ips=trainer_ips,
+                      save_s=times["save"], load_s=times["_resume"][0], file_bytes=file_bytes,
+                      peak=peak_a, peak_resumed=peak_b, rel=max(rel), launches=probe_a.steps)
+        del a, b, sa, sb, pairs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        free_memory()
+    result["gloo"] = run_dist_gloo(tmp)
+    return result
+
+
+def xl_cut_model():
+    """MicroDiT-XL at full width (dim 1024, mixer 6 x 768, 8 experts) with the
+    backbone cut to ``DIST_B_DEPTH`` blocks, the stage-1 overlay's settings, the
+    zero-initialised layers perturbed."""
+    import torch
+    from micro_diffusion_tpu_torch.models import dit as tdit
+    from micro_diffusion_tpu_torch.models.diffusion import LatentDiffusion
+
+    dit = tdit._zoo(DIST_B_DEPTH, 1024, 64, 256, 6, 768, (0.5, 1.0), (0.5, 4.0),
+                    caption_channels=1024, input_size=32, num_experts=8, expert_capacity=2.0,
+                    experts_every_n=2, in_channels=4, dtype=torch.bfloat16, remat=True,
+                    remat_policy="full", moe_dispatch="onehot", fused_adaln=True,
+                    device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dit.init_weights(gen)
+    perturb_zero_init(dit, gen)  # else the gated MoE blocks get no gradient at step 1
+    return LatentDiffusion(dit, latent_res=32, train_mask_ratio=0.75)
+
+
+def moe_leaf_names(dit):
+    """The gate and expert parameters of every EC-MoE block of ``dit``."""
+    names = []
+    for name, mod in dit.named_modules():
+        if hasattr(mod, "set_expert_parallel"):
+            names += [f"{name}.w1", f"{name}.w2"]
+            names += [f"{name}.gate.{n}" for n, _ in mod.gate.named_parameters()]
+    return names
+
+
+def xl_cut_step(mesh=None):
+    """One step of the cut XL model on its rows of a seeded global batch of
+    ``DIST_B_BATCH`` in microbatches of ``DIST_B_MB`` (constant lr 1e-4, clip 0.25);
+    (loss, grad norm, whole parameters, whole first moments of the gate and expert
+    leaves; on the host)."""
+    import torch
+    from micro_diffusion_tpu_torch.parallel import Zero2, batch_sharding, shard_params
+    from micro_diffusion_tpu_torch.train.optim import build_optimizer, constant_schedule
+    from micro_diffusion_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    model = xl_cut_model()
+    zero = None
+    if mesh is not None:
+        shard_params(model.dit, mesh)
+        zero = Zero2(model.dit, mesh)
+    sched = constant_schedule(1e-4)
+    tx = build_optimizer(dict(model.dit.named_parameters()), sched, clip_norm=0.25)
+    state = create_train_state(model.dit, tx, grad_shardings=zero)
+    step = make_train_step(model, tx, sched, microbatch_size=DIST_B_MB, grad_shardings=zero)
+    batch = train_batch(torch.Generator(device="cuda").manual_seed(SEED + 30), DIST_B_BATCH)
+    rows = batch_sharding(mesh).rows(DIST_B_BATCH)
+    state, m = step(state, {k: v[rows] for k, v in batch.items()},
+                    torch.Generator(device="cuda").manual_seed(SEED + 31))
+    params = {k: (zero.gather_param(p.detach(), k) if zero else p.detach()).cpu()
+              for k, p in state.params.items()}
+    mu = state.opt_state.mu
+    moe_mu = {k: (zero.gather_state(mu[k], k) if zero else mu[k]).cpu()
+              for k in moe_leaf_names(model.dit)}
+    return float(m["loss"]), float(m["grad_norm"]), params, moe_mu
+
+
+def gloo_cuda_probe(rank):
+    """Every collective the parallel layer uses, on CUDA tensors in this (gloo)
+    group of 2: 'ok' or the error, by name."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(4.0, device="cuda") + rank
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return torch.equal(y, 2 * torch.arange(4.0, device="cuda") + 1)
+
+    def reduce_scatter():
+        y = torch.empty(2, device="cuda")
+        dist.reduce_scatter_tensor(y, x.clone())
+        return torch.equal(y, (2 * torch.arange(4.0, device="cuda") + 1)[2 * rank:2 * rank + 2])
+
+    def all_gather_into_tensor():
+        y = torch.empty(8, device="cuda")
+        dist.all_gather_into_tensor(y, x.clone())
+        return torch.equal(y[:4] + 1, y[4:])
+
+    def all_gather_list():
+        parts = [torch.empty(4, device="cuda") for _ in range(2)]
+        dist.all_gather(parts, x.clone())
+        return torch.equal(parts[0] + 1, parts[1])
+
+    def broadcast_object():
+        obj = [rank]
+        dist.broadcast_object_list(obj, src=0)
+        return obj == [0]
+
+    def barrier():
+        dist.barrier()
+        return True
+
+    out = {}
+    for fn in (all_reduce, reduce_scatter, all_gather_into_tensor, all_gather_list,
+               broadcast_object, barrier):
+        try:
+            out[fn.__name__] = "ok" if fn() else "wrong values"
+        except (RuntimeError, ValueError, NotImplementedError) as err:
+            out[fn.__name__] = f"{type(err).__name__}: {str(err).splitlines()[0][:200]}"
+    return out
+
+
+def dist_rank_main(out_path):
+    """One of 2 gloo ranks sharing this card (``run_dist_gloo``): the collective
+    probe, then, when every collective takes CUDA tensors, one cut-XL step at each
+    mesh of ``DIST_B_MESHES``; rank 0 writes the results."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from micro_diffusion_tpu_torch.parallel import make_mesh
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=DIST_B_GROUP_TIMEOUT_S))
+    rank = dist.get_rank()
+    res = {"probe": gloo_cuda_probe(rank), "steps": {}}
+    if all(v == "ok" for v in res["probe"].values()):
+        for shape in DIST_B_MESHES:
+            mesh = make_mesh(*shape)
+            t0 = time.perf_counter()
+            loss, norm, params, moe_mu = xl_cut_step(mesh)
+            res["steps"][shape] = dict(loss=loss, grad_norm=norm, params=params, moe_mu=moe_mu,
+                                       seconds=time.perf_counter() - t0)
+            del params, moe_mu
+    if rank == 0:
+        torch.save(res, out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_dist_gloo(tmp):
+    """(b) 2 gloo ranks on this card: the collective probe; when every collective
+    takes CUDA tensors, one step of XL at full width, depth cut to DIST_B_DEPTH, at
+    mesh (1, 2, 1) and (1, 1, 2), each against the same step on one rank (no group):
+    loss and grad norm within DIST_TOL relative, the parameters within
+    DIST_B_PARAM_TOL[mesh] relative L2, and each gate and expert leaf's first
+    moment within DIST_B_MOE_GRAD_TOL."""
+    import torch
+    from micro_diffusion_tpu_torch.parallel import dryrun
+
+    out = os.path.join(tmp, "dist_gloo.pt")
+    t0 = time.perf_counter()
+    procs = dryrun.spawn(2, [os.path.abspath(__file__), "--dist-rank", out],
+                         env={"PYTHONPATH": ROOT})
+    dryrun.wait(procs, timeout=DIST_B_TIMEOUT_S)
+    res = torch.load(out, weights_only=False)
+    os.remove(out)
+    log(f"[dist gloo] 2 gloo ranks on one card, collectives on CUDA tensors: "
+        f"{json.dumps(res['probe'])} ({time.perf_counter() - t0:.1f} s)")
+    summary = {"probe": res["probe"], "steps": {}}
+    if not res["steps"]:
+        log("[dist gloo] gloo does not take CUDA tensors in every collective the layer "
+            "uses: no 2-rank steps on the card; the CPU tests carry the multi-rank parity")
+        return summary
+    loss, norm, params, moe_mu = xl_cut_step()
+    ref2 = sum(v.double().square().sum() for v in params.values())
+    for shape, got in res["steps"].items():
+        diffs = {k: float((got["params"][k].double() - v.double()).square().sum())
+                 for k, v in params.items()}
+        rel_p = float(sum(diffs.values()) ** 0.5 / ref2.sqrt())
+        worst = sorted(diffs, key=diffs.get, reverse=True)[:3]
+        leaf = {k: (d / max(float(params[k].double().square().sum()), 1e-300)) ** 0.5
+                for k, d in diffs.items()}
+        worst_leaf = max(leaf, key=leaf.get)
+        grad = {k: float((got["moe_mu"][k].double() - v.double()).norm() / v.double().norm())
+                for k, v in moe_mu.items()}
+        worst_grad = max(grad, key=grad.get)
+        rel_l, rel_n = abs(got["loss"] - loss) / abs(loss), abs(got["grad_norm"] - norm) / norm
+        tol = DIST_B_PARAM_TOL[shape]
+        log(f"[dist gloo] mesh {shape}, XL width depth {DIST_B_DEPTH}, batch {DIST_B_BATCH} "
+            f"(mb {DIST_B_MB}): loss {got['loss']:.6f} vs one rank {loss:.6f} (rel {rel_l:.3e}), "
+            f"grad norm {got['grad_norm']:.6f} vs {norm:.6f} (rel {rel_n:.3e}), parameters "
+            f"relative L2 {rel_p:.3e} (tol {DIST_TOL} / {tol}; largest in {worst}, "
+            f"{sum(v > 0 for v in diffs.values())} of {len(diffs)} tensors differ; the "
+            f"worst leaf alone {leaf[worst_leaf]:.3e} in {worst_leaf}); gate and expert "
+            f"leaves' first moments, each: worst relative L2 {grad[worst_grad]:.3e} in "
+            f"{worst_grad} (tol {DIST_B_MOE_GRAD_TOL}, {len(grad)} leaves); the 2-rank "
+            f"step {got['seconds']:.1f} s (model build included)")
+        if not (rel_l <= DIST_TOL and rel_n <= DIST_TOL and rel_p <= tol
+                and grad[worst_grad] <= DIST_B_MOE_GRAD_TOL):
+            raise AssertionError(f"[dist gloo] mesh {shape}: loss {rel_l}, norm {rel_n}, "
+                                 f"params {rel_p}, {worst_grad} first moment {grad[worst_grad]}")
+        summary["steps"][str(shape)] = dict(
+            rel_loss=rel_l, rel_norm=rel_n, rel_params=rel_p, worst_leaf=worst_leaf,
+            worst_leaf_rel=leaf[worst_leaf], worst_moe_grad=worst_grad,
+            worst_moe_grad_rel=grad[worst_grad])
+    del params
+    free_memory()
+    return summary
+
+
 # ------------------------------------------------------------ 512px stages
 
 
@@ -2179,9 +2549,9 @@ def stage_argv(config, train_dir, eval_dir, metrics_path, steps, *extra):
             f"logger.progress.path={metrics_path}", *extra]
 
 
-def fit_metrics(metrics_path, steps, label):
-    """Losses, grad norms, SpeedMonitor img/s and the eval loss of a fit; all finite,
-    one per step and one eval."""
+def fit_metrics(metrics_path, steps, label, evals_want=1):
+    """Losses, grad norms, SpeedMonitor img/s and the eval losses of a fit; all
+    finite, one per step and ``evals_want`` evals."""
     rows = read_jsonl(metrics_path)
     losses = [r["loss/train/total"] for r in rows if "loss/train/total" in r]
     norms = [r["l2_norm/grad/global"] for r in rows if "l2_norm/grad/global" in r]
@@ -2190,7 +2560,7 @@ def fit_metrics(metrics_path, steps, label):
     evals = [r["metrics/eval/loss"] for r in rows if "metrics/eval/loss" in r]
     log(f"{label} losses {losses}; grad norms {norms}; eval loss {evals}; images/s per "
         f"step {ips}")
-    if not (len(losses) == len(norms) == steps and len(evals) == 1
+    if not (len(losses) == len(norms) == steps and len(evals) == evals_want
             and all(math.isfinite(v) for v in losses + norms + evals)):
         raise AssertionError(f"{label} metrics: {len(losses)} losses, {len(norms)} grad "
                              f"norms, evals {evals}; all finite expected")
@@ -2261,9 +2631,11 @@ def gather_determinism(moe, gen, n, t):
 
 def bare_policy(trainer, batch, policy, label, rec):
     """A warm-up and ``BARE_TIMED`` bare train steps under remat ``policy``, their
-    median, its peak memory, then one profiled step. The timed steps' launches
-    must be those of ``rec`` (one microbatch's forward): under the 'attn_moe'
-    policies the attention kernels' kept outputs are not recomputed."""
+    median, its peak memory, then, under the overlay's own policy, one profiled
+    step (a profiled XL step costs tens of seconds of script: the profiler's
+    key_averages over ~35k launches). The timed steps' launches must be those of
+    ``rec`` (one microbatch's forward): under the 'attn_moe' policies the
+    attention kernels' kept outputs are not recomputed."""
     import torch
 
     dit = trainer.model.dit
@@ -2286,8 +2658,9 @@ def bare_policy(trainer, batch, policy, label, rec):
         f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
         f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB; launches per step as "
         f"expected: {per_step}")
-    profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
-                 label=f"{label} step, remat '{policy}'")
+    if policy == saved:
+        profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
+                     label=f"{label} step, remat '{policy}'")
     dit.remat_policy = saved
     return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, times=times)
 
@@ -2674,6 +3047,11 @@ def main():
         log(f"[phase] resume {time.perf_counter() - t_phase:.1f} s")
         free_memory()
 
+        # ---- the parallel layer: one-rank NCCL XL round trip, 2 gloo ranks
+        t_phase = time.perf_counter()
+        ds = run_dist(tmp, tn)
+        log(f"[phase] dist {time.perf_counter() - t_phase:.1f} s")
+
         # ---- XL stage 2 under 'auto' and 'flash_bthd' (K5), the remat policies
         t_phase = time.perf_counter()
         s2 = run_stage2(tmp)
@@ -2942,4 +3320,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:  # a rank of [dist gloo] (run_dist_gloo)
+        sys.exit(dist_rank_main(sys.argv[2]))
     sys.exit(main())

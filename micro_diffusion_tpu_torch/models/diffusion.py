@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.masking import make_token_mask
 from . import dit as model_zoo
 from .dit import resolve_device
 
@@ -119,22 +120,22 @@ class LatentDiffusion(nn.Module):
                  token_mask=None):
         """Log-normal-sigma EDM loss with mask-aware patch pooling (model.py:181-210).
 
-        ``rnd_normal`` (N, 1, 1, 1), ``noise`` (N, C, H, W) and ``token_mask`` are
-        drawn from ``generator`` when not given, in that order.
+        ``rnd_normal`` (N, 1, 1, 1), ``noise`` (N, C, H, W) and ``token_mask``: the
+        ones not given are ``train_draws``'s from ``generator``.
         """
         ec = self.edm_config
         x = x.float()
         y = y.float()
-        if rnd_normal is None:
-            rnd_normal = torch.randn((x.shape[0], 1, 1, 1), generator=generator,
-                                     device=x.device)
-        if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device)
+        if rnd_normal is None or noise is None or (mask_ratio > 0 and token_mask is None):
+            drawn = self.train_draws(x.shape, mask_ratio, generator, x.device)
+            rnd_normal = drawn["rnd_normal"] if rnd_normal is None else rnd_normal
+            noise = drawn["noise"] if noise is None else noise
+            token_mask = drawn.get("token_mask") if token_mask is None else token_mask
         sigma = torch.exp(rnd_normal.float() * ec.P_std + ec.P_mean)
         weight = (sigma**2 + ec.sigma_data**2) / (sigma * ec.sigma_data) ** 2
         n = noise.float() * sigma
         out = self.model_forward_wrapper(x + n, sigma, y, mask_ratio=mask_ratio,
-                                         token_mask=token_mask, generator=generator)
+                                         token_mask=token_mask)
         loss = weight * (out["sample"] - x) ** 2  # (N, C, H, W)
         if mask_ratio > 0:
             # per-patch pooled loss over the kept patches only (model.py:201-209)
@@ -175,6 +176,34 @@ class LatentDiffusion(nn.Module):
                              mask_ratio=self.train_mask_ratio if train else self.eval_mask_ratio,
                              generator=generator, **draws)
         return loss, latents, conditioning
+
+    def train_draws(self, shape, mask_ratio: float,
+                    generator: torch.Generator | None = None, device=None) -> dict:
+        """The random draws of one microbatch of latents shaped ``shape`` (N, C, H, W),
+        in the one order that ``edm_loss`` and ``skip_train_draws`` share: rnd_normal
+        (N, 1, 1, 1), noise (N, C, H, W), then, with mask_ratio > 0, the token mask
+        of the DiT's (H / p) * (W / p) tokens. On ``generator``'s device, else on
+        ``device`` from the global generator."""
+        n, _, h, w = shape
+        device = generator.device if generator is not None else device
+        draws = {"rnd_normal": torch.randn((n, 1, 1, 1), generator=generator, device=device),
+                 "noise": torch.randn(tuple(shape), generator=generator, device=device)}
+        if mask_ratio > 0:
+            if generator is None:
+                raise ValueError("mask_ratio > 0 needs a token_mask or a generator")
+            p = self.dit.patch_size
+            draws["token_mask"] = make_token_mask(generator, n, (h // p) * (w // p), mask_ratio)
+        return draws
+
+    def skip_train_draws(self, generator: torch.Generator, batch: dict, count: int) -> None:
+        """Advance ``generator`` past the draws that ``forward`` makes for ``count``
+        training microbatches shaped like ``batch`` (``train_draws``). A rank whose
+        rows come after other ranks' in the global batch then draws what one
+        process would have drawn for its rows."""
+        if not (self.precomputed_latents and "image_latents" in batch):
+            raise ValueError("skip_train_draws: only for precomputed latents")
+        for _ in range(count):
+            self.train_draws(batch["image_latents"].shape, self.train_mask_ratio, generator)
 
     def _require(self, name: str, what: str):
         handle = getattr(self, name)

@@ -29,6 +29,7 @@ from ..ops.moe_dispatch import (combine_expert_rows, combine_rows, dispatch_rows
                                 gather_expert_rows)
 from ..ops.moe_ffn import _moe_ffn_em_ref, _moe_ffn_ref, moe_ffn, moe_ffn_expert_major
 from ..ops.remat_names import checkpoint_name
+from ..parallel.sharding import copy_to_group, reduce_from_group
 
 # ------------------------------------------------------------------ initialisers
 # An init spec is ("xavier",), ("zeros",) or ("normal", std); trunc_normal in the
@@ -209,7 +210,17 @@ class FeedForwardECMoe(nn.Module):
     flows through topk's values and the gate weighting; the routing indices carry
     none (JAX's stop_gradient, layers.py:439). The combine runs under
     ``checkpoint_name("moe_out")``, JAX's tag (layers.py:303,307,390), for the
-    'attn_moe' remat policies."""
+    'attn_moe' remat policies.
+
+    Expert parallelism (``set_expert_parallel``, from parallel/sharding.py
+    ``shard_params``): the module keeps experts [lo, lo + e_local) of ``w1`` / ``w2``.
+    The gate, its softmax and the top-k stay replicated, with k from the global
+    expert count; the rank runs its experts' slice of (g, m) through the same
+    dispatch, combines them in fp32 and sums the partial outputs over the
+    ``tensor`` group, rounding once to the compute dtype after the sum. The input
+    passes an identity whose backward sums the gradient over the group; the gate's
+    parameter gradient holds this rank's experts' share (parallel.sharding.Zero2
+    sums it over ``tensor``)."""
 
     def __init__(self, num_experts: int, expert_capacity: float, dim: int,
                  hidden_dim: int, multiple_of: int, w2_init=XAVIER,
@@ -232,6 +243,17 @@ class FeedForwardECMoe(nn.Module):
                            device=device)
         self.w1 = nn.Parameter(torch.empty(num_experts, dim, hidden, device=device))
         self.w2 = nn.Parameter(torch.empty(num_experts, hidden, dim, device=device))
+        self.expert_parallel = None  # (group, first expert, local experts)
+
+    def set_expert_parallel(self, group, index: int, size: int) -> None:
+        """Keep experts [index * e / size, (index + 1) * e / size) and sum the
+        partial outputs over ``group``."""
+        count = self.num_experts // size
+        lo = index * count
+        with torch.no_grad():
+            self.w1 = nn.Parameter(self.w1[lo:lo + count].clone())
+            self.w2 = nn.Parameter(self.w2[lo:lo + count].clone())
+        self.expert_parallel = (group, lo, count)
 
     def _init_params(self, gen: torch.Generator) -> None:
         e, d, f = self.w1.shape
@@ -240,14 +262,29 @@ class FeedForwardECMoe(nn.Module):
         init_tensor(self.w2, self.w2_init, gen, fan_in=e * f, fan_out=e * d)
 
     def forward(self, x):
-        n, t, d = x.shape
-        e = self.num_experts
+        if self.expert_parallel is None:
+            return self._experts(x, *self._route(x))
+        group, lo, count = self.expert_parallel
+        x = copy_to_group(x, group)
+        g, m = self._route(x)
+        out = self._experts(x, g[:, lo:lo + count], m[:, lo:lo + count], torch.float32)
+        return reduce_from_group(out, group).to(self.compute_dtype)
+
+    def _route(self, x):
+        """Expert choice over all experts: (g, m), each (n, e, k)."""
+        t, e = x.shape[1], self.num_experts
         k = int(self.expert_capacity * t / e)
+        probs = torch.softmax(self.gate(x).float(), dim=-1)  # (n, t, e)
+        g, m = torch.topk(probs.transpose(1, 2), k, dim=-1)
+        return g.to(self.compute_dtype), m
+
+    def _experts(self, x, g, m, combine_dtype=None):
+        """The experts of ``self.w1`` / ``self.w2`` on their picks (g, m), each
+        (n, e, k), combined in ``combine_dtype`` (default: the compute dtype)."""
+        n, t, d = x.shape
+        e, k = m.shape[1], m.shape[2]
         dt = self.compute_dtype
-        scores = self.gate(x)  # (n, t, e)
-        probs = torch.softmax(scores.float(), dim=-1)
-        g, m = torch.topk(probs.transpose(1, 2), k, dim=-1)  # (n, e, k)
-        g = g.to(dt)
+        cdt = combine_dtype or dt
         x = x.to(dt)
         w1, w2 = self.w1.to(dt), self.w2.to(dt)
 
@@ -255,7 +292,7 @@ class FeedForwardECMoe(nn.Module):
             idx = m.reshape(n, e * k)
             xg = dispatch_rows(x, idx)  # (n, e*k, d)
             h = moe_ffn(xg.reshape(n, e, k, d), w1, w2).reshape(n, e * k, d)
-            hg = h * g.reshape(n, e * k, 1)
+            hg = (h * g.reshape(n, e * k, 1)).to(cdt)
             with checkpoint_name("moe_out"):
                 return combine_rows(hg, idx, t)
         if self.dispatch in ("onehot", "onehot_dots"):
@@ -266,7 +303,7 @@ class FeedForwardECMoe(nn.Module):
             h = ffn(xg, w1, w2).reshape(n, e * k, d)
             weights_t = (onehot * g.reshape(n, e * k, 1)).transpose(1, 2)
             with checkpoint_name("moe_out"):
-                return torch.bmm(weights_t, h)  # (n, t, d)
+                return torch.bmm(weights_t.to(cdt), h.to(cdt))  # (n, t, d)
 
         # flat expert-major rows: expert i's picks of sample j at flat row j*t + m
         gidx = m + (torch.arange(n, device=x.device) * t)[:, None, None]  # (n, e, k)
@@ -274,7 +311,7 @@ class FeedForwardECMoe(nn.Module):
         xin = gather_expert_rows(x.reshape(n * t, d), gidx)  # (e, n*k, d)
         ffn = moe_ffn_expert_major if self.dispatch == "gather" else _moe_ffn_em_ref
         h = ffn(xin, w1, w2)
-        out = h * g.transpose(0, 1).reshape(e, n * k, 1)
+        out = (h * g.transpose(0, 1).reshape(e, n * k, 1)).to(cdt)
         with checkpoint_name("moe_out"):
             out = combine_expert_rows(out, gidx, n * t)
         return out.reshape(n, t, d)

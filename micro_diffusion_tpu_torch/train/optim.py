@@ -12,8 +12,10 @@ the JAX package's optax chain step for step, with fp32 update math:
   * decoupled weight decay on the old parameter, ``u + wd * p``;
   * the learning rate evaluated at the pre-increment count, ``p <- p - lr * u``.
 
-Parameters are a ``{name: tensor}`` dict (the module's own parameters), updated in
-place under ``no_grad``. The MoE lr group matches ``moe_matcher`` against the
+Parameters are a ``{name: tensor}`` dict (the module's own parameters, or under
+ZeRO-2 this rank's shard of each: parallel/sharding.py ``Zero2.param_shards``,
+views into them), updated in place under ``no_grad``; the moments take the shape
+of what ``init`` is given. The MoE lr group matches ``moe_matcher`` against the
 parameter names, as the reference matches it against torch names: with the
 default 'moe' it matches nothing (the modules are named ``mlp``), so every
 parameter gets the base lr, but the machinery is live.
@@ -25,6 +27,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # ----------------------------------------------------------------------- schedules
 # Each schedule maps a step count to the learning rate, computed in float32 as the
@@ -92,10 +95,20 @@ def build_schedule(cfg: dict, base_lr: float, t_max: int) -> Callable:
 # ----------------------------------------------------------------------- optimizer
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in fp32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.stack(norms).square().sum().sqrt()
+def global_norm(tensors, group=None, device=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, in fp32. With a process
+    ``group``, the squares are summed over its ranks first: each rank passes the
+    shards it counts (parallel.sharding.Zero2.norm_names), so that every element
+    of the reduced gradient is counted once; ``device`` for a rank that counts
+    none."""
+    tensors = [t.float() for t in tensors]
+    if tensors:
+        squares = torch.stack(torch._foreach_norm(tensors)).square().sum()
+    else:
+        squares = torch.zeros((), device=device)
+    if group is not None:
+        dist.all_reduce(squares, group=group)
+    return squares.sqrt()
 
 
 def _label_params(names, moe_matcher: str = "moe") -> dict:

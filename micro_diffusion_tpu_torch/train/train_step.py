@@ -12,9 +12,18 @@ Counterpart of ``micro_diffusion_tpu/train/train_step.py`` (``TrainState``,
   * the random draws (sigma normal, noise, token mask) come from one
     ``torch.Generator`` in microbatch order, or are injected per microbatch.
 
+Under a mesh (``grad_shardings``, a parallel/sharding.py ``Zero2``) each rank
+takes its rows of the global batch, accumulates its microbatches as above, and
+then reduce-scatters the gradient into its ZeRO-2 shard (JAX: the accumulator
+pinned to the opt-state shardings, train_step.py:108-124), updates that shard and
+all-gathers the parameters; the loss is the mean over the batch ranks and the
+grad norm that of the reduced gradient. The EMA is updated from the full
+parameters and stays replicated (JAX's ``ema_params=p_sh``). Any process group
+takes this path, one process included.
+
 Not ported: ``param_flow_dtype`` and the host-EMA placements (README.md, 'Not
-ported'), and ``grad_shardings`` (ROADMAP queue A, parallelism): the EMA is a plain
-tensor copy in the state, the ``in_state`` placement.
+ported'): the EMA is a plain tensor copy in the state, the ``in_state``
+placement.
 """
 
 import dataclasses
@@ -22,6 +31,9 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+import torch.distributed as dist
+
+from ..parallel.sharding import Zero2
 from .optim import AdamState, AdamW, ema_update, global_norm
 
 
@@ -40,14 +52,17 @@ def _named_params(model_or_params) -> dict:
 
 
 def create_train_state(params, tx: AdamW, use_ema: bool = False,
-                       ema_dtype: Optional[torch.dtype] = None) -> TrainState:
+                       ema_dtype: Optional[torch.dtype] = None,
+                       grad_shardings=None) -> TrainState:
     """``params``: a module or {name: tensor}. ``ema_dtype``: storage dtype of the
-    EMA copy (default: the params' own)."""
+    EMA copy (default: the params' own). ``grad_shardings``: a ``Zero2``, whose
+    shards the optimizer state takes the shape of."""
     params = _named_params(params)
     ema = None
     if use_ema:
         ema = {k: p.detach().clone().to(ema_dtype or p.dtype) for k, p in params.items()}
-    return TrainState(step=0, params=params, opt_state=tx.init(params), ema_params=ema)
+    shards = grad_shardings.param_shards() if grad_shardings is not None else params
+    return TrainState(step=0, params=params, opt_state=tx.init(shards), ema_params=ema)
 
 
 def _split_microbatches(batch: dict, microbatch_size: Optional[int]):
@@ -75,15 +90,20 @@ def make_train_step(model, tx: AdamW, lr_schedule: Callable,
     sequence with one dict per microbatch of injected draws (rnd_normal, noise,
     token_mask). Metrics: 'loss', 'grad_norm' (before clipping) and 'lr' (at the
     step the update used), as 0-d tensors.
+
+    ``grad_shardings``: a parallel/sharding.py ``Zero2`` (ZeRO-2 over its mesh);
+    ``batch`` is then this rank's rows, and ``generator`` first skips the draws
+    of the microbatches of the batch ranks before this one, so that every row
+    draws what it draws in one process with the same microbatch size.
     """
     if param_flow_dtype is not None:
         raise NotImplementedError(
             "param_flow_dtype is a TPU-memory workaround that is not ported "
             "(README.md, 'Not ported'; ROADMAP queue A)")
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings needs the parallel layer, not ported yet (ROADMAP queue A, "
-            "parallelism)")
+    if grad_shardings is not None and not isinstance(grad_shardings, Zero2):
+        raise TypeError(f"grad_shardings: a parallel.sharding.Zero2, not "
+                        f"{type(grad_shardings).__name__}")
+    zero = grad_shardings
 
     def grads_of(params, mb, generator, draws_i):
         names = [n for n, p in params.items() if p.requires_grad]
@@ -96,6 +116,8 @@ def make_train_step(model, tx: AdamW, lr_schedule: Callable,
         micro, n = _split_microbatches(batch, microbatch_size)
         if draws is not None and len(draws) != n:
             raise ValueError(f"{len(draws)} draw sets for {n} microbatches")
+        if zero is not None and generator is not None and draws is None:
+            model.skip_train_draws(generator, micro[0], n * zero.mesh.index("batch"))
         pick = (lambda i: draws[i]) if draws is not None else (lambda i: None)
         if n == 1:
             loss, grads = grads_of(state.params, micro[0], generator, pick(0))
@@ -115,9 +137,21 @@ def make_train_step(model, tx: AdamW, lr_schedule: Callable,
             grads = {k: a.float() / n for k, a in acc.items()}
             del acc
 
-        grad_norm = global_norm(grads.values())
         lr = lr_schedule(state.step)
-        opt_state = tx.step(state.params, grads, state.opt_state, grad_norm=grad_norm)
+        if zero is None:
+            grad_norm = global_norm(grads.values())
+            opt_state = tx.step(state.params, grads, state.opt_state, grad_norm=grad_norm)
+        else:
+            mesh = zero.mesh
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=mesh.group("batch"))
+            loss = loss / mesh.axis_size("batch")
+            grads = zero.reduce_gradients(grads)
+            grad_norm = global_norm([grads[k] for k in zero.norm_names], group=mesh.group("world"),
+                                    device=loss.device)
+            opt_state = tx.step(zero.param_shards(), grads, state.opt_state,
+                                grad_norm=grad_norm)
+            zero.gather_params()
         del grads
         ema = state.ema_params
         if ema is not None and ema_smoothing is not None:

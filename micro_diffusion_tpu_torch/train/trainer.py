@@ -1,5 +1,5 @@
 """The training loop of the port: counterpart of micro_diffusion_tpu/train/trainer.py
-(``Trainer`` :57-772) for one device.
+(``Trainer`` :57-772), on one device or one rank of a process group.
 
   * one step per batch through ``make_train_step`` (microbatch accumulation, AdamW
     with clipping, EMA in the state: the ``in_state`` placement);
@@ -19,10 +19,22 @@ Random draws: step ``s`` draws from a ``torch.Generator`` seeded from (seed, s)
 alone, as JAX draws from ``fold_in(PRNGKey(seed), s)``, so a resumed run repeats
 an uninterrupted one and the checkpoint carries no generator state.
 
+In a process group (train/cli.py ``--multihost``, or ``torchrun``'s WORLD_SIZE)
+the ranks form a (data, fsdp, tensor) mesh of ``mesh_shape`` (default: all data;
+parallel/mesh.py), which must equal the world. Each rank loads its rows of the
+global batch, the step runs ZeRO-2 and, under ``tensor``, expert parallelism
+(parallel/sharding.py), and the step's generator skips the draws of the rows
+before the rank's, so that every row draws what it draws in one process.
+Only rank 0 prints and logs; the eval loss is the mean over the ranks' batches
+(a rank's eval draws come from (seed, batch, rank)); checkpoints keep the one
+format, whole tensors by name, written by rank 0 after the shards are gathered,
+and a load on any world size takes its slices, so a checkpoint from n ranks
+resumes on m. The loader position in them is global.
+
 Not ported, and raising ValueError: the TPU-memory workarounds (``accum_mode:
 dispatch``, ``param_flow_dtype``, the ``host_cadence``/``hostcompute`` EMA
-placements: README.md, 'Not ported'), a mesh of more than one device (ROADMAP queue
-A, parallelism) and loading an orbax (JAX) checkpoint directory.
+placements: README.md, 'Not ported') and loading an orbax (JAX) checkpoint
+directory.
 """
 
 import contextlib
@@ -34,8 +46,10 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.interop import load_torch_checkpoint
+from ..parallel import Zero2, make_mesh, shard_params
 from .callbacks import Callback, Logger
 from .optim import AdamState, build_optimizer, build_schedule
 from .train_step import create_train_state, make_eval_step, make_train_step
@@ -62,9 +76,11 @@ def _dtype(name: Optional[str], what: str) -> Optional[torch.dtype]:
     return _DTYPES[name]
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s generator: a function of (seed, step) only."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of step ``step``'s generator: a function of (seed, step) only, and
+    of the rank for ranks other than 0."""
+    entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return int(state[0] >> np.uint64(1))
 
 
@@ -129,9 +145,15 @@ class Trainer:
         if param_flow_dtype is not None:
             raise ValueError("param_flow_dtype is a TPU-memory workaround that is not "
                              "ported (README.md, 'Not ported'; ROADMAP queue A)")
-        if mesh_shape and any(v not in (None, 1) for v in mesh_shape.values()):
-            raise ValueError(f"mesh_shape {mesh_shape}: the port's trainer runs on one "
-                             "device (ROADMAP queue A, parallelism)")
+        mesh_shape = {k: v for k, v in (mesh_shape or {}).items() if v is not None}
+        self.mesh = None
+        if dist.is_initialized():
+            self.mesh = make_mesh(data=mesh_shape.get("data"), fsdp=mesh_shape.get("fsdp", 1),
+                                  tensor=mesh_shape.get("tensor", 1))
+        elif any(v != 1 for v in mesh_shape.values()):
+            raise ValueError(f"mesh_shape {mesh_shape} does not equal the world of one "
+                             "process: start one process per device (torchrun, --multihost)")
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.model = model
         self.device = next(model.parameters()).device
         if device is not None and torch.device(device).type != self.device.type:
@@ -148,7 +170,7 @@ class Trainer:
         self.loggers = loggers or []
         self.callbacks = callbacks or []
         self.metric_window = int(metric_window)
-        self.num_chips = 1
+        self.num_chips = self.mesh.size if self.mesh is not None else 1
         self.global_batch_size = (getattr(train_dataloader, "global_batch_size", None)
                                   or getattr(train_dataloader, "batch_size", 0))
 
@@ -172,6 +194,10 @@ class Trainer:
             }
 
         self.lr_schedule = build_schedule(schedulers, float(optimizer["lr"]), self.max_steps)
+        self.zero = None
+        if self.mesh is not None:
+            shard_params(model.dit, self.mesh)
+            self.zero = Zero2(model.dit, self.mesh)
         self.tx = build_optimizer(
             dict(model.dit.named_parameters()), self.lr_schedule,
             weight_decay=float(optimizer.get("weight_decay", 0.1)),
@@ -180,13 +206,14 @@ class Trainer:
             low_precision_moments=bool(optimizer.get("low_precision_moments", False)),
             mu_dtype=_dtype(optimizer.get("mu_dtype"), "mu_dtype"))
         self.state = create_train_state(model.dit, self.tx, use_ema=self.ema_cfg is not None,
-                                        ema_dtype=self.ema_cfg["dtype"] if self.ema_cfg else None)
+                                        ema_dtype=self.ema_cfg["dtype"] if self.ema_cfg else None,
+                                        grad_shardings=self.zero)
         ema_cfg = self.ema_cfg or {}
         self._step_fn = make_train_step(
             model, self.tx, self.lr_schedule, microbatch_size=self.microbatch_size,
             ema_smoothing=ema_cfg.get("smoothing"), ema_start=ema_cfg.get("ema_start", 0),
             ema_update_interval=ema_cfg.get("update_interval", 1),
-            accum_dtype=_dtype(grad_accum_dtype, "grad_accum_dtype"))
+            accum_dtype=_dtype(grad_accum_dtype, "grad_accum_dtype"), grad_shardings=self.zero)
         self._eval_fn = make_eval_step(model)
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
@@ -206,9 +233,12 @@ class Trainer:
         return self.state.step
 
     def print(self, msg: str) -> None:
-        print(f"[trainer:{self.run_name}] {msg}", flush=True)
+        if self.is_main:
+            print(f"[trainer:{self.run_name}] {msg}", flush=True)
 
     def log(self, scalars: Dict[str, float]) -> None:
+        if not self.is_main:
+            return
         for logger in self.loggers:
             logger.log_scalars(scalars, self.global_step)
 
@@ -239,29 +269,53 @@ class Trainer:
     # ------------------------------------------------------------------ ckpt
 
     def save(self) -> None:
+        """Write the state at this step; in a process group every rank calls it, the
+        shards are gathered and rank 0 writes (to the host first), then a barrier."""
         if self.save_dir is None:
             return
         step = self.global_step
         path = os.path.join(self.save_dir, str(step), CKPT_FILE)
-        if os.path.exists(path):
+        exists = [os.path.exists(path)]
+        if self.mesh is not None:
+            dist.broadcast_object_list(exists, src=0)
+        if exists[0]:
             return  # already saved at this step (an interval save == the final save)
         loader_state = self._save_loader_state
         if loader_state is None and hasattr(self.train_loader, "state_dict"):
             loader_state = self.train_loader.state_dict()
         opt = self.state.opt_state
-        payload = {"step": step, "params": self.state.params,
-                   "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
-                   "loader": loader_state or {}}
-        if self.state.ema_params is not None:
-            payload["ema_params"] = self.state.ema_params
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in _step_dirs(self.save_dir)[:-self.keep] if self.keep > 0 else []:
-            shutil.rmtree(os.path.join(self.save_dir, str(old)))
+        params, mu, nu, ema = (self.state.params, opt.mu, opt.nu, self.state.ema_params)
+        if self.zero is not None:
+            def whole(gather, tree):  # every rank gathers; rank 0 keeps a host copy
+                out = {}
+                for k, v in tree.items():
+                    t = gather(v.detach(), k)
+                    out[k] = t.cpu() if self.is_main else None
+                return out
+
+            params = whole(self.zero.gather_param, params)
+            mu, nu = whole(self.zero.gather_state, mu), whole(self.zero.gather_state, nu)
+            if ema is not None:
+                ema = whole(self.zero.gather_param, ema)
+        if self.is_main:
+            payload = {"step": step, "params": params,
+                       "opt_state": {"count": opt.count, "mu": mu, "nu": nu},
+                       "loader": loader_state or {}}
+            if ema is not None:
+                payload["ema_params"] = ema
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(payload, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            for old in _step_dirs(self.save_dir)[:-self.keep] if self.keep > 0 else []:
+                shutil.rmtree(os.path.join(self.save_dir, str(old)))
+        del params, mu, nu, ema
+        if self.mesh is not None:
+            dist.barrier()
         self.print(f"saved checkpoint at step {step}")
 
     def _read(self, path: str) -> dict:
+        if self.mesh is not None:  # each rank maps the file and copies its slices
+            return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
         return torch.load(path, map_location=self.device, weights_only=True)
 
     def _resume(self, path: str) -> None:
@@ -280,8 +334,12 @@ class Trainer:
             # computed constant
             self.print(f"load_ignore_keys: '{key}' (structural no-op in this trainer)")
         if load_path.endswith((".pt", ".pth", ".bin")):
-            load_torch_checkpoint(load_path, self.model.dit, strict=strict)
-            self._mirror_ema()
+            if self.zero is None:
+                load_torch_checkpoint(load_path, self.model.dit, strict=strict)
+                self._mirror_ema()
+            else:  # this rank's slices of the whole tensors
+                self._apply_restored({"params": load_torch_checkpoint(load_path)},
+                                     weights_only=True, strict=strict)
             self.print(f"loaded torch weights from {load_path}")
             return
         path = find_checkpoint(load_path)
@@ -304,20 +362,25 @@ class Trainer:
             raise ValueError(f"checkpoint parameters differ from the model's: missing "
                              f"{sorted(set(params) - set(loaded))[:5]}, unexpected "
                              f"{sorted(set(loaded) - set(params))[:5]}")
+        def part(t, k, state=False):  # this rank's slice of a whole tensor
+            if self.zero is None:
+                return t
+            return self.zero.state_local(t, k) if state else self.zero.param_local(t, k)
+
         for k in params.keys() & loaded.keys():
-            params[k].copy_(loaded[k])
+            params[k].copy_(part(loaded[k], k))
         if weights_only:
             self._mirror_ema()  # the step and optimizer start afresh
             return
         opt = ckpt["opt_state"]
         for k in params:
-            self.state.opt_state.mu[k].copy_(opt["mu"][k])
-            self.state.opt_state.nu[k].copy_(opt["nu"][k])
+            self.state.opt_state.mu[k].copy_(part(opt["mu"][k], k, state=True))
+            self.state.opt_state.nu[k].copy_(part(opt["nu"][k], k, state=True))
         ema = self.state.ema_params
         if ema is not None:
             if "ema_params" in ckpt:
                 for k, e in ema.items():
-                    e.copy_(ckpt["ema_params"][k])
+                    e.copy_(part(ckpt["ema_params"][k], k))
             else:  # a stage without EMA chained into one with: mirror the loaded params
                 self._mirror_ema()
         self.state = dataclasses.replace(
@@ -400,13 +463,24 @@ class Trainer:
         if self.eval_loader is None:
             return None
         losses = []
+        rank = self.mesh.index("batch") if self.mesh is not None else 0
         with self.eval_weights():
             for i, batch in enumerate(self._one_eval_epoch(self.eval_loader)):
-                gen = torch.Generator(device=self.device).manual_seed(step_seed(self.seed + 1, i))
+                gen = torch.Generator(device=self.device).manual_seed(
+                    step_seed(self.seed + 1, i, rank))
                 losses.append(self._eval_fn(self._take(self._stage_batch(batch)), gen))
-        if not losses:
+        if self.mesh is not None:  # the mean over every rank's batches
+            total = torch.stack([torch.stack(losses).sum() if losses else
+                                 torch.zeros((), device=self.device),
+                                 torch.tensor(float(len(losses)), device=self.device)])
+            dist.all_reduce(total, group=self.mesh.group("batch"))
+            if total[1] == 0:
+                return None
+            eval_loss = float(total[0] / total[1])
+        elif not losses:
             return None
-        eval_loss = float(torch.stack(losses).mean())
+        else:
+            eval_loss = float(torch.stack(losses).mean())
         self.log({"metrics/eval/loss": eval_loss})
         for cb in self.callbacks:
             cb.eval_end(self, eval_loss)

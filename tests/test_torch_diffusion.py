@@ -90,7 +90,8 @@ def test_port_imports_no_jax():
         "assert 'micro_diffusion_tpu_torch.train.train_step' in sys.modules\n"
         "for m in ('datasets.prepare.precompute', 'datasets.prepare.common',\n"
         "          'datasets.prepare.specs', 'datasets.captions',\n"
-        "          'models.convert_checkpoint', 'utils.profiling'):\n"
+        "          'models.convert_checkpoint', 'utils.profiling', 'parallel.mesh',\n"
+        "          'parallel.sharding', 'parallel.dryrun'):\n"
         "    assert 'micro_diffusion_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

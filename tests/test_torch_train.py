@@ -265,7 +265,8 @@ def test_train_state_and_unported_options():
     with pytest.raises(NotImplementedError, match="Not ported"):
         ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4),
                                param_flow_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    # grad_shardings is the parallel layer's ZeRO-2 (tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="Zero2"):
         ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4), grad_shardings={})
 
 

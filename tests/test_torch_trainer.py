@@ -206,9 +206,11 @@ def test_recipes_and_overlays_load():
         assert model.dit.blocks[0].norm1.fused_adaln
     # a JAX target resolves to the port's module of the same name once it is ported
     # (the VAE since slice 6, the CLIP vision tower since slice 7, the profiling
-    # helpers since slice 8), and raises while it is not (the parallel layer)
+    # helpers since slice 8, the parallel layer since slice 9), and raises while it
+    # is not (the native MDS gather)
     from micro_diffusion_tpu_torch.models.clip_zero_shot import CLIPVisionTransformer
     from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+    from micro_diffusion_tpu_torch.parallel.mesh import make_mesh
     from micro_diffusion_tpu_torch.utils.profiling import StepTimer
     assert tconfig.resolve_target("micro_diffusion_tpu.models.vae.AutoencoderKL") \
         is AutoencoderKL
@@ -217,8 +219,9 @@ def test_recipes_and_overlays_load():
         is CLIPVisionTransformer
     assert tconfig.resolve_target("micro_diffusion_tpu.utils.profiling.StepTimer") \
         is StepTimer
+    assert tconfig.resolve_target("micro_diffusion_tpu.parallel.mesh.make_mesh") is make_mesh
     for bad in ("os.system",
-                "micro_diffusion_tpu.parallel.mesh.make_mesh",
+                "micro_diffusion_tpu.datasets.native.gather",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
         with pytest.raises(ValueError, match="no counterpart"):
             tconfig.resolve_target(bad)
@@ -246,15 +249,23 @@ def test_overlays_resolve_without_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT)
 
 
-def test_entry_point_needs_the_card_unless_asked(dataset_dir, tmp_path):
+def test_entry_point_needs_the_card_unless_asked(dataset_dir, tmp_path, monkeypatch):
     """The overlays say trainer.device=cuda: without a card the entry point raises
-    (never falls back to the CPU); --multihost and a TPU device raise."""
+    (never falls back to the CPU); --multihost raises without torchrun's
+    environment and, on cuda, without a card; a TPU device raises."""
     assert not torch.cuda.is_available()
     base = ["--config-path", OVERLAYS, "--config-name", "res_256_pretrain"]
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(base + ["model.dit_arch=MicroDiT_Micro_2"])
-    with pytest.raises(ValueError, match="multihost"):
-        cli.main(base + ["--multihost"])
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        cli.main(["--multihost"] + base)
+    for var, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", "29500")):
+        monkeypatch.setenv(var, value)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(base)  # a set WORLD_SIZE joins the group as --multihost does
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         cli.main(["--config-path", os.path.join(ROOT, "configs"), "--config-name",
                   "res_256_pretrain"])  # the recipe's own trainer.device: tpu
@@ -577,7 +588,7 @@ def test_train_e2e_script_chains_the_four_stages(tmp_path):
     (dict(accum_mode="dispatch"), "Not ported"),
     (dict(param_flow_dtype="bfloat16"), "Not ported"),
     (dict(ema_placement="hostcompute"), "Not ported"),
-    (dict(mesh_shape={"data": 2}), "parallelism"),
+    (dict(mesh_shape={"data": 2}), "does not equal the world"),
     (dict(device="tpu"), "'cuda' or 'cpu'"),
     (dict(load_path="orbax"), "orbax"),
 ])

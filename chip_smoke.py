@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run on a failed check:
   1. device  - the card's name and power limit; build the CUDA kernels (one nvcc
-               per source, started together) and report the build time.
+               per source, started together) and the native MDS gather (g++), and
+               report the build times.
   2. kernels - each hand-written kernel against its plain PyTorch version on the
                card, in bf16, at the shapes of the MicroDiT-XL sampling path;
                CUDA-event times of kernel, plain version and (attention only)
@@ -48,6 +49,10 @@ Phases, each of which fails the run on a failed check:
                (train.cli.main with the H100 overlay: fused adaLN, remat 'full')
                on a seeded synthetic MDS latents dataset: 6 steps at batch 256 and
                one eval, the launch counts of all five kernels checked every step;
+               the loader's reads counted through the native MDS gather, and one
+               epoch-ordered batch read by the gather and by the memmap path,
+               bitwise equal, with the MB/s of each from a warm and a cold page
+               cache;
                then a warm-up and 3 bare make_train_step calls on the same state
                under the overlay's policy (median time, peak, profile; the
                trainer-vs-bare ratio).
@@ -2026,6 +2031,113 @@ def remat_grads_agree(model, batch, gen, label):
     return rels
 
 
+@contextlib.contextmanager
+def counted_gathers():
+    """Count the native MDS gather's calls, samples and bytes (datasets/native.py)
+    inside the block: [calls, samples, bytes]."""
+    from micro_diffusion_tpu_torch.datasets import native
+
+    fn, counts = native.gather, [0, 0, 0]
+
+    def gather(paths, file_offsets, lengths, *args, **kwargs):
+        counts[0] += 1
+        counts[1] += len(paths)
+        counts[2] += int(sum(lengths))
+        return fn(paths, file_offsets, lengths, *args, **kwargs)
+
+    native.gather = gather
+    try:
+        yield counts
+    finally:
+        native.gather = fn
+
+
+def drop_page_cache(dirname):
+    """Drop the page cache's copy of every file under ``dirname`` (fsync, then
+    ``posix_fadvise`` DONTNEED, which needs no root): the next read is a cold one, as
+    a sample's read is in an epoch over a set larger than the host's memory."""
+    for root, _, files in os.walk(dirname):
+        for name in files:
+            fd = os.open(os.path.join(root, name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def read_batch(datadir, indices, path):
+    """One batch's blobs read through ``path``, 'gather' (``native.gather``) or 'mmap'
+    (``MDSReader.read_blobs_mmap``), by a new reader whose maps no read has touched
+    yet (a sample's first read in an epoch): (sha256 of the blobs, bytes, start and
+    end on the host's monotonic clock, which every process of the host shares)."""
+    import hashlib
+    from micro_diffusion_tpu_torch.datasets import native
+    from micro_diffusion_tpu_torch.datasets.mds import MDSReader
+
+    reader = MDSReader(datadir)
+    ranges = [reader.sample_range(int(i)) for i in indices]
+    t0 = time.perf_counter()
+    if path == "gather":
+        blobs = native.gather([r[0] for r in ranges], [r[2] for r in ranges],
+                              [r[3] for r in ranges])
+    else:
+        blobs = reader.read_blobs_mmap(ranges)
+    t1 = time.perf_counter()
+    digest = hashlib.sha256()
+    for b in blobs:
+        digest.update(b)
+    return digest.hexdigest(), sum(r[3] for r in ranges), t0, t1
+
+
+def compare_reads(datadir, batches, label, rounds=5, pool=None):
+    """The batches (one a reader; in ``pool``'s processes at once when given, else
+    one after another in this one) through the native gather and through the
+    memmap path, in turns, ``rounds`` times each from a warm page cache and from a
+    cold one (``drop_page_cache`` before each read): the blobs bitwise equal, the
+    MB/s of all the batches (their bytes over the span from the first start to the
+    last end), the median of the rounds. Raises when the two paths differ."""
+    rates, digests = {}, {}
+    for cache in ("warm", "cold"):
+        for _ in range(rounds):
+            for path in ("gather", "mmap"):
+                if cache == "cold":
+                    drop_page_cache(datadir)
+                args = [(datadir, b, path) for b in batches]
+                res = (list(pool.starmap(read_batch, args)) if pool is not None
+                       else [read_batch(*a) for a in args])
+                span = max(r[3] for r in res) - min(r[2] for r in res)
+                rates.setdefault((cache, path), []).append(sum(r[1] for r in res) / span / 1e6)
+                digests.setdefault(path, set()).add(tuple(r[0] for r in res))
+    equal = len(digests["gather"]) == 1 and digests["gather"] == digests["mmap"]
+    med = {f"{path}_{cache}_mb_s": statistics.median(v) for (cache, path), v in rates.items()}
+    every = {f"{cache} {path}": [round(x) for x in v] for (cache, path), v in rates.items()}
+    log(f"{label} {len(batches)} reader(s) x {len(batches[0])} samples "
+        f"({'processes at once' if pool is not None else 'one process'}), a new reader "
+        f"each read: native gather and memmap slices bitwise equal {equal}; MB/s, median "
+        f"of {rounds}: warm {med['gather_warm_mb_s']:.0f} (gather, 8 threads) vs "
+        f"{med['mmap_warm_mb_s']:.0f} (memmap), cold {med['gather_cold_mb_s']:.0f} vs "
+        f"{med['mmap_cold_mb_s']:.0f}; every round {every}")
+    if not equal:
+        raise AssertionError(f"{label} the native gather's blobs differ from the memmap path's")
+    return med
+
+
+def gather_vs_mmap(loader, gathers):
+    """The loader's reads went through the native gather; its first epoch-ordered
+    batch read by the gather and by the memmap path (``compare_reads``)."""
+    from micro_diffusion_tpu_torch.datasets import native
+
+    calls, samples, nbytes = gathers
+    log(f"[trainer] the loader read {samples} samples ({nbytes / 1e6:.1f} MB) in {calls} "
+        f"calls of the native MDS gather ({os.path.basename(native.library_path())})")
+    if not calls:
+        raise AssertionError("[trainer] the loader never called the native gather")
+    idx = loader._epoch_order(0)[:loader.global_batch_size]
+    rates = compare_reads(loader.dataset.readers[0].dirname, [idx], "[trainer]")
+    return dict(calls=calls, samples=samples, bytes=nbytes, **rates)
+
+
 def run_trainer(tmp):
     """The XL stage-1 recipe through the entry point, then the bare-step and remat
     comparisons on the same model and state."""
@@ -2051,10 +2163,12 @@ def run_trainer(tmp):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = cli.main(argv, callbacks=[probe])
+    with counted_gathers() as gathers:
+        trainer = cli.main(argv, callbacks=[probe])
     wall = time.perf_counter() - t0
     fit_peak = torch.cuda.max_memory_allocated()
     dit = trainer.model.dit
+    gather = gather_vs_mmap(trainer.train_loader, gathers)
     log(f"[trainer] cli.main: {TRAINER_STEPS} steps + eval in {wall:.1f} s (model build "
         f"included); remat {dit.remat} '{dit.remat_policy}', fused adaLN on; peak "
         f"{fit_peak / 2**30:.2f} GiB")
@@ -2112,6 +2226,7 @@ def run_trainer(tmp):
     return dict(launches=want, adaln_step=adaln_step, trainer_ips=trainer_ips,
                 bare=bare, bare_ips=bare["img_per_s"], ratio=trainer_ips / bare["img_per_s"],
                 waits=waits, fit_peak=fit_peak, policy=dit.remat_policy, losses=losses,
+                gather=gather,
                 norms=norms, ips=ips,
                 numel=sum(p.numel() for p in trainer.state.params.values()))
 
@@ -2974,6 +3089,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     try:
+        from micro_diffusion_tpu_torch.datasets import native
         from micro_diffusion_tpu_torch.ops import _build
     except ImportError as err:
         print(f"chip_smoke: the port's package is not beside this script: {err}",
@@ -2989,6 +3105,10 @@ def main():
     t_start = t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[device] kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native.available()  # built up front as the kernels are, so [trainer]'s wait is reads
+    log(f"[device] the native MDS gather ({os.path.basename(native.library_path())}) built "
+        f"with g++ in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (

@@ -50,7 +50,8 @@ class StreamingLatentsDataset:
         return self._postprocess(sample, index, epoch)
 
     def get_batch(self, indices, epoch: int = 0) -> List[Dict[str, np.ndarray]]:
-        """The samples at ``indices``, read stream by stream."""
+        """The samples at ``indices``, read stream by stream: one ``read_many``
+        each, so a stream's share of a batch goes through the native gather."""
         streams = np.searchsorted(self._cum, indices, side="right") - 1
         out = [None] * len(indices)
         for s in np.unique(streams):

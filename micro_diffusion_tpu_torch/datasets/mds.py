@@ -13,9 +13,10 @@ streaming) read in the other:
     sample:     uint32 sizes[<variable-size columns>] then encoded columns in order
 
 Encodings: bytes, str, jpeg, png, int, int32, int64, uint32, float32, json. The
-reader memory-maps the shards; ``read_many`` gathers blobs from the maps (the JAX
-package's native parallel-pread gather, host C++, is not ported: ROADMAP queue A,
-the native MDS gather).
+reader memory-maps the shards. ``read_many`` reads a batch of 4 samples or more
+through the native parallel-``pread`` gather (``datasets/native.py``, host C++),
+as the JAX reader does (mds.py:264-285), and slices smaller ones from the maps
+(``read_blobs_mmap``).
 """
 
 import io
@@ -26,6 +27,9 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from . import native
+
+NATIVE_MIN_BATCH = 4  # read_many's native gather from this many samples on (JAX's)
 _FIXED = {"int": 8, "int64": 8, "int32": 4, "uint32": 4, "float32": 4}
 
 
@@ -53,13 +57,15 @@ def _encode(encoding: str, value: Any) -> bytes:
     raise ValueError(f"unsupported MDS encoding: {encoding}")
 
 
-def _decode(encoding: str, data: bytes) -> Any:
+def _decode(encoding: str, data) -> Any:
+    """One column from its bytes, or a view of them (``read_many``'s native path):
+    a ``bytes`` column stays a view, equal to the bytes."""
     if encoding == "bytes":
         return data
     if encoding == "str":
-        return data.decode("utf-8")
+        return bytes(data).decode("utf-8")
     if encoding == "json":
-        return json.loads(data.decode("utf-8"))
+        return json.loads(bytes(data).decode("utf-8"))
     if encoding in ("int", "int64"):
         return struct.unpack("<q", data)[0]
     if encoding == "int32":
@@ -219,14 +225,29 @@ class MDSReader:
         for i in range(len(self)):
             yield self[i]
 
+    def sample_range(self, idx: int):
+        """(shard file path, shard index, begin, length) of sample ``idx``'s blob."""
+        shard_idx, begin, end = self._locate(idx)
+        path = os.path.join(self.dirname, self.shards[shard_idx]["raw_data"]["basename"])
+        return path, shard_idx, begin, end - begin
+
+    def read_blobs_mmap(self, ranges) -> List[bytes]:
+        """The blobs of ``sample_range`` tuples, sliced from the memory maps one by
+        one: the plain path beside the native gather."""
+        return [self._shard_data(shard_idx)[begin:begin + length].tobytes()
+                for _, shard_idx, begin, length in ranges]
+
     def read_many(self, indices) -> List[Dict[str, Any]]:
-        """Decode many samples, their blobs sliced from the memory maps."""
-        out = []
-        for i in indices:
-            shard_idx, begin, end = self._locate(int(i))
-            blob = self._shard_data(shard_idx)[begin:end].tobytes()
-            out.append(self._decode_sample(self.shards[shard_idx], blob))
-        return out
+        """Decode many samples. The blobs of ``NATIVE_MIN_BATCH`` samples or more
+        are read by the native gather (``datasets/native.py``), fewer are sliced
+        from the memory maps; the decoded samples are the same."""
+        ranges = [self.sample_range(int(i)) for i in indices]
+        if len(ranges) >= NATIVE_MIN_BATCH:
+            blobs = native.gather([r[0] for r in ranges], [r[2] for r in ranges],
+                                  [r[3] for r in ranges])
+        else:
+            blobs = self.read_blobs_mmap(ranges)
+        return [self._decode_sample(self.shards[r[1]], b) for r, b in zip(ranges, blobs)]
 
 
 def merge_index(root: str, subdirs: Optional[Sequence[str]] = None) -> None:

@@ -206,8 +206,10 @@ def test_recipes_and_overlays_load():
         assert model.dit.blocks[0].norm1.fused_adaln
     # a JAX target resolves to the port's module of the same name once it is ported
     # (the VAE since slice 6, the CLIP vision tower since slice 7, the profiling
-    # helpers since slice 8, the parallel layer since slice 9), and raises while it
-    # is not (the native MDS gather)
+    # helpers since slice 8, the parallel layer since slice 9, the native MDS gather
+    # since slice 10), and raises while it is not (utils/platform.py, which the port
+    # does not port: README.md, 'Not ported')
+    from micro_diffusion_tpu_torch.datasets.native import gather
     from micro_diffusion_tpu_torch.models.clip_zero_shot import CLIPVisionTransformer
     from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
     from micro_diffusion_tpu_torch.parallel.mesh import make_mesh
@@ -220,8 +222,9 @@ def test_recipes_and_overlays_load():
     assert tconfig.resolve_target("micro_diffusion_tpu.utils.profiling.StepTimer") \
         is StepTimer
     assert tconfig.resolve_target("micro_diffusion_tpu.parallel.mesh.make_mesh") is make_mesh
+    assert tconfig.resolve_target("micro_diffusion_tpu.datasets.native.gather") is gather
     for bad in ("os.system",
-                "micro_diffusion_tpu.datasets.native.gather",
+                "micro_diffusion_tpu.utils.platform.apply_platform_override",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
         with pytest.raises(ValueError, match="no counterpart"):
             tconfig.resolve_target(bad)

@@ -238,6 +238,9 @@ LSE_TOL = 1e-3  # max |kernel - plain| of the fp32 row logsumexp: the same expon
                 # summed in another order (online across key tiles) around values ~5
 STAGE2_STEPS = 4  # fit steps of each [stage2] run (one epoch of the 1024-sample set)
 REMAT_POLICIES = ("full", "dots", "attn_moe", "dots_attn_moe")
+# the lean names of the 512px stages' bare steps, beside 'dots' and 'full'; stage 2 runs
+# the last of them beside REMAT_POLICIES, with its gradient against 'full'
+LEAN_POLICIES = ("dots_xlean_alean", "dots_attn_moe_xlean_alean")
 RECIPE_BATCHES = (250000, 30000, 50000, 55000)  # batches of stages 1-4 (configs/res_*.yaml:
                                                 # 250k, then to 280k, 50k, 55k more)
 CLIP_NAME = "openclip:hf-hub:apple/DFN5B-CLIP-ViT-H-14-378"  # 49408 x 1024, 24 layers
@@ -754,32 +757,42 @@ BWD_OF = {"attention": "attention_bwd", "bh": "bh_bwd", "fa": "fa_bwd", "moe": "
 class PathRecord:
     """The kernel calls of the forwards run under ``record_path``, by kernel and
     shape (K1 (B, Tq, Tk, H), K4 and K5 (B, Tq, Tk, H, D), K2 (n, e, k, d, f), K3
-    (e, m, d, f), K6 (B, T, D)), and those of them outside the remat blocks (the
-    caption block's attention, the final layer's adaLN)."""
+    (e, m, d, f), K6 (B, T, D)), those of them outside the remat blocks (the
+    caption block's attention, the final layer's adaLN) and the cross-attention's."""
 
     def __init__(self):
         kinds = ("attention", "bh", "fa", "moe", "em", "adaln")
         self.shapes = {k: collections.Counter() for k in kinds}
         self.outside = {k: collections.Counter() for k in kinds}
+        self.cross = {k: collections.Counter() for k in kinds}
 
     def calls(self):
         return {k: sum(c.values()) for k, c in self.shapes.items()}
 
-    def step_shapes(self, kind, microbatches, backward=False):
+    def step_shapes(self, kind, microbatches, backward=False, kept=()):
         """Launches by shape of a train step of ``microbatches`` microbatches under
         per-block remat: a block's kernel calls run twice forward (the backward
         re-runs the block) and once backward; the calls outside the blocks once
-        each way."""
+        each way, and so do the attention calls in the blocks whose outputs the
+        remat policy keeps (``kept``: 'attn_out' self-attention, 'xattn_out'
+        cross-attention)."""
+        def forward(shape, n):
+            once = self.outside[kind][shape]
+            if kind in ("attention", "bh", "fa"):
+                cross = self.cross[kind][shape]
+                once += (cross if "xattn_out" in kept else 0) + (
+                    n - self.outside[kind][shape] - cross if "attn_out" in kept else 0)
+            return 2 * n - once
+
         return collections.Counter({
-            shape: microbatches * (n if backward else 2 * n - self.outside[kind][shape])
+            shape: microbatches * (n if backward else forward(shape, n))
             for shape, n in self.shapes[kind].items()})
 
     def step_launches(self, microbatches, kept=()):
-        """Launches of a train step; the forward kernels of the kinds in ``kept``
-        (whose outputs the remat policy keeps) run once, not again in the backward."""
+        """Launches of a train step, the outputs named in ``kept`` kept (step_shapes)."""
         want = launch_dict()
         for kind in self.shapes:
-            want[kind] = sum(self.step_shapes(kind, microbatches, kind in kept).values())
+            want[kind] = sum(self.step_shapes(kind, microbatches, kept=kept).values())
             if kind in BWD_OF:
                 want[BWD_OF[kind]] = sum(self.step_shapes(kind, microbatches, True).values())
         return want
@@ -799,22 +812,23 @@ def record_path(dit):
     rec = PathRecord()
     outside = {id(dit.y_emb_preprocess.attn), id(dit.final_layer.norm_final)}
 
-    def add(kind, key, mod):
+    def add(kind, key, mod, cross=False):
         if kind is not None:
             rec.shapes[kind][key] += 1
             rec.outside[kind][key] += id(mod) in outside
+            rec.cross[kind][key] += cross
 
-    def on_attn(mod, tq, tk, b):
+    def on_attn(mod, tq, tk, b, cross=False):
         h = mod.num_heads
         d = mod.hidden // h
         kind = attn_route(mod.attn_impl, h, d, tq)
-        add(kind, (b, tq, tk, h) if kind == "attention" else (b, tq, tk, h, d), mod)
+        add(kind, (b, tq, tk, h) if kind == "attention" else (b, tq, tk, h, d), mod, cross)
 
     def on_self(mod, args):
         on_attn(mod, args[0].shape[1], args[0].shape[1], args[0].shape[0])
 
     def on_cross(mod, args):
-        on_attn(mod, args[0].shape[1], args[1].shape[-2], args[0].shape[0])
+        on_attn(mod, args[0].shape[1], args[1].shape[-2], args[0].shape[0], cross=True)
 
     def on_moe(mod, args):
         n, t, d = args[0].shape
@@ -1993,13 +2007,13 @@ def bare_steps(trainer, batch, n):
     return times
 
 
-def remat_grads_agree(model, batch, gen, label):
-    """One microbatch's loss and whole gradient under every remat policy against
-    'full' on the card, with the same draws: the selective contexts must rebuild
-    what the kernels' autograd Functions saved, and the kept kernel outputs
-    ('attn_moe') must be the recomputed ones, so all agree (the same arithmetic in
-    the same order; 1e-6 relative L2 leaves room for a GEMM algorithm that sums
-    otherwise). Returns {policy: relative L2}."""
+def remat_grads_agree(model, batch, gen, label, policies):
+    """One microbatch's loss and whole gradient under each remat policy of
+    ``policies`` against 'full' on the card, with the same draws: the selective
+    contexts must rebuild what the kernels' autograd Functions saved, and the kept
+    kernel outputs ('attn_moe') must be the recomputed ones, so all agree (the same
+    arithmetic in the same order; 1e-6 relative L2 leaves room for a GEMM algorithm
+    that sums otherwise). Returns {policy: relative L2}."""
     import torch
 
     b = batch["image_latents"].shape[0]
@@ -2015,7 +2029,7 @@ def remat_grads_agree(model, batch, gen, label):
     loss_f, grads_f = loss_and_grads("full")
     ref = sum(g.float().square().sum() for g in grads_f).sqrt()
     rels = {}
-    for name in REMAT_POLICIES[1:]:
+    for name in policies:
         loss, grads = loss_and_grads(name)
         equal = sum(bool(torch.equal(a, g)) for a, g in zip(grads, grads_f))
         diff2 = sum((a.float() - g.float()).square().sum() for a, g in zip(grads, grads_f))
@@ -2744,18 +2758,33 @@ def gather_determinism(moe, gen, n, t):
         raise AssertionError(f"'gather' MoE layer not bitwise repeatable: {equal}")
 
 
+def kept_outputs(policy):
+    """The attention outputs that remat ``policy`` keeps, so that the backward does
+    not launch their kernels again (JAX dit.py:350-379): both under the 'attn_moe'
+    bases, but under 'dots_attn_moe' '_alean' gives up the cross-attention's."""
+    from micro_diffusion_tpu_torch.models.dit import parse_remat_policy
+
+    base, lean = parse_remat_policy(policy)
+    if not base.endswith("attn_moe"):
+        return ()
+    if base == "dots_attn_moe" and "attn_proj" in lean:
+        return ("attn_out",)
+    return ("attn_out", "xattn_out")
+
+
 def bare_policy(trainer, batch, policy, label, rec):
     """A warm-up and ``BARE_TIMED`` bare train steps under remat ``policy``, their
-    median, its peak memory, then, under the overlay's own policy, one profiled
-    step (a profiled XL step costs tens of seconds of script: the profiler's
-    key_averages over ~35k launches). The timed steps' launches must be those of
-    ``rec`` (one microbatch's forward): under the 'attn_moe' policies the
-    attention kernels' kept outputs are not recomputed."""
+    median, its peak memory and the memory resident before them, then, under the
+    overlay's own policy, one profiled step (a profiled XL step costs tens of
+    seconds of script: the profiler's key_averages over ~35k launches). The timed
+    steps' launches must be those of ``rec`` (one microbatch's forward): the
+    attention kernels whose outputs the policy keeps are not launched again."""
     import torch
 
     dit = trainer.model.dit
     saved, dit.remat_policy = dit.remat_policy, policy
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     bare_steps(trainer, batch, 1)
     reset_counts()
@@ -2763,26 +2792,26 @@ def bare_policy(trainer, batch, policy, label, rec):
     got = read_counts()
     peak = torch.cuda.max_memory_allocated()
     b = batch["image_latents"].shape[0]
-    kept = ("attention", "bh", "fa") if policy.endswith("attn_moe") else ()
-    per_step = rec.step_launches(microbatching(trainer, b)[1], kept)
+    per_step = rec.step_launches(microbatching(trainer, b)[1], kept_outputs(policy))
     want = {k: BARE_TIMED * n for k, n in per_step.items()}
     if got != want:
         raise AssertionError(f"{label} bare steps under '{policy}': launches {got} != {want}")
     ms = statistics.median(times)
     log(f"{label} bare steps, remat '{policy}', batch {b}: "
         f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
-        f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB; launches per step as "
-        f"expected: {per_step}")
+        f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB (resident before "
+        f"{resident / 2**30:.2f} GiB); launches per step as expected: {per_step}")
     if policy == saved:
         profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
                      label=f"{label} step, remat '{policy}'")
     dit.remat_policy = saved
-    return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, times=times)
+    return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, resident=resident, times=times)
 
 
 def run_stage(tmp, config, label, latent=64):
     """One XL 512px stage through the entry point (the H100 overlay, 'gather', EMA
-    from ``STAGE_EMA_START``), then the stage's bare steps under 'dots' and 'full'."""
+    from ``STAGE_EMA_START``), then the stage's bare steps under 'dots', the lean
+    names and 'full'."""
     import torch
     from micro_diffusion_tpu_torch.train import cli
 
@@ -2837,7 +2866,8 @@ def run_stage(tmp, config, label, latent=64):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
              for key, v in train_batch(gen, BARE_MICROBATCHES * mb, latent).items()}
-    policies = {p: bare_policy(trainer, batch, p, label, train_rec) for p in ("dots", "full")}
+    policies = {p: bare_policy(trainer, batch, p, label, train_rec)
+                for p in ("dots",) + LEAN_POLICIES + ("full",)}
     return trainer, dict(train_rec=train_rec, want=want, want_eval=want_eval, k=k, mb=mb,
                          policy=dit.remat_policy,
                          trainer_ips=trainer_ips, fit_peak=fit_peak, losses=losses,
@@ -2850,7 +2880,8 @@ def run_stage2(tmp):
     K6) and with model.attention_impl=flash_bthd (K5 at every attention site, K1
     never). Each: 4 steps and one eval with the launch counts of every kernel
     checked, bare steps under remat 'full'; under 'auto' also under every other
-    remat policy, with one microbatch's gradient under each against 'full'; under
+    remat policy and one lean name, with one microbatch's gradient under each
+    against 'full'; under
     'flash_bthd' one microbatch's loss and gradient through the kernels against the
     plain versions."""
     import torch
@@ -2909,8 +2940,9 @@ def run_stage2(tmp):
             run["cmp"] = compare_train_grads(trainer.model, mb_batch, gen, label=label)
             policies = ("full",)
         else:
-            run["remat_rel"] = remat_grads_agree(trainer.model, mb_batch, gen, label)
-            policies = REMAT_POLICIES
+            policies = REMAT_POLICIES + LEAN_POLICIES[-1:]
+            run["remat_rel"] = remat_grads_agree(trainer.model, mb_batch, gen, label,
+                                                 policies[1:])
         run["policies"] = {p: bare_policy(trainer, batch, p, label, train_rec)
                            for p in policies}
         runs[impl] = run
@@ -3398,13 +3430,21 @@ def main():
         f"{tn['ratio']:.3f}; "
         f"resume: {rs['equal']}/{rs['tensors']} bitwise, rel L2 {rs['rel']:.3e}")
     for label, st in (("[stage3]", s3), ("[stage4]", s4)):
-        pol = st["policies"]
+        pol = ", ".join(f"'{p}' {r['ms']:.1f} ms ({r['img_per_s']:.2f} img/s, peak "
+                        f"{r['peak'] / 2**30:.2f} GiB)" for p, r in st["policies"].items())
         log(f"{label} through the entry point: {st['trainer_ips']:.2f} img/s (all "
             f"images over all the time after step 2), fit peak {st['fit_peak'] / 2**30:.2f} GiB; "
-            f"bare steps 'dots' {pol['dots']['ms']:.1f} ms ({pol['dots']['img_per_s']:.2f} "
-            f"img/s, peak {pol['dots']['peak'] / 2**30:.2f} GiB), 'full' "
-            f"{pol['full']['ms']:.1f} ms ({pol['full']['img_per_s']:.2f} img/s, peak "
-            f"{pol['full']['peak'] / 2**30:.2f} GiB)")
+            f"bare steps {pol}")
+    # stage 4 at a doubled microbatch, from each policy's peak: what a step adds to the
+    # resident state, doubled (an upper estimate: the gradient accumulator and the
+    # optimizer's temporaries do not grow with the microbatch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for p, r in s4["policies"].items():
+        projected = r["resident"] + 2 * (r["peak"] - r["resident"])
+        log(f"[stage4] mb {2 * s4['mb']} under '{p}': resident {r['resident'] / 2**30:.2f} + "
+            f"2 x {(r['peak'] - r['resident']) / 2**30:.2f} = {projected / 2**30:.2f} GiB of "
+            f"the card's {total / 2**30:.2f}: "
+            f"{'fits' if projected < total else 'does not fit'}")
     for impl, run in s2.items():
         pol = ", ".join(f"'{p}' {r['ms']:.1f} ms ({r['img_per_s']:.2f} img/s, peak "
                         f"{r['peak'] / 2**30:.2f} GiB)" for p, r in run["policies"].items())

@@ -7,9 +7,10 @@ the kept tokens are gathered after the patch mixer and scattered back after the
 final layer) and per-block rematerialisation (``remat=True``: per-block
 ``torch.utils.checkpoint``; policy 'full' recomputes the whole block, 'dots'
 keeps the 2-D products' outputs, 'attn_moe' the self-attention, cross-attention
-and EC-MoE outputs, 'dots_attn_moe' both). The lean variants are not ported yet
-and raise. ``pos_embed`` is a computed constant (a non-persistent buffer), as in
-the JAX package, so converted weights and released checkpoints load strictly.
+and EC-MoE outputs, 'dots_attn_moe' both; the lean suffixes leave named products
+out: ``remat_policy_fn``). ``pos_embed`` is a computed constant (a non-persistent
+buffer), as in the JAX package, so converted weights and released checkpoints load
+strictly.
 """
 
 import functools
@@ -137,35 +138,70 @@ def _moe_block_flags(depth: int, experts_every_n: int, *, skip_last: bool) -> li
 
 # JAX's dots_with_no_batch_dims_saveable: the Linears' products are the 2-D ones
 # (a 3-D input is folded to rows); the batched bmm/einsum products, the hand
-# kernels and the elementwise ops are recomputed.
+# kernels and the elementwise ops are recomputed. The unrolled dispatches' expert
+# products are batched here but 2-D dots in JAX: 'dots' keeps them by name.
 _DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_DOTS_NAMES = ("expert_dots",)
 # JAX's save_only_these_names (dit.py:350-382): the operators that produce the
 # named outputs (ops/remat_names.py)
 _NAMES_SAVED = ("attn_out", "xattn_out", "moe_out")
+_BASES = ("full", "dots", "attn_moe", "dots_attn_moe")
+# the products that each lean suffix leaves out (JAX dit.py:330-349): '_xlean' implies
+# '_lean', '_alean' composes with either
+_LEAN = {"_lean": ("expert_dots",), "_xlean": ("expert_dots", "ffn_hidden"),
+         "_alean": ("attn_proj",)}
 
 
-def _saving(ops=(), names=()):
-    """A selective-checkpoint policy that keeps the outputs of ``ops`` and of every
-    operator run under one of ``names``, and recomputes the rest."""
-    def policy(ctx, op, *args, **kwargs):
-        return (CheckpointPolicy.MUST_SAVE if op in ops or current_name() in names
-                else CheckpointPolicy.PREFER_RECOMPUTE)
-    return policy
+def parse_remat_policy(policy: str) -> tuple[str, frozenset]:
+    """``<base>[_lean|_xlean][_alean]`` -> (base, the names its suffixes leave out).
+    JAX treats an unknown base as 'full' (dit.py:378-379); the port raises."""
+    name, lean = policy, set()
+    for suffix in ("_alean", "_xlean", "_lean"):
+        if name.endswith(suffix):
+            name = name[:-len(suffix)]
+            lean.update(_LEAN[suffix])
+            if suffix != "_alean":
+                break
+    if name not in _BASES:
+        raise ValueError(f"unknown remat policy {policy!r}: one of {_BASES}, each "
+                         "optionally with '_lean' or '_xlean', then '_alean'")
+    return name, frozenset(lean)
 
 
-# remat policy -> the selective-checkpoint context of a block ('full': none). The
-# 'gather' combine adds into the tensor that its first operator made, so the kept
-# entries of a named region change after they are cached (to the kept value).
-_REMAT_CONTEXTS = {
-    "full": None,
-    "dots": functools.partial(create_selective_checkpoint_contexts, _saving(_DOTS_SAVED)),
-    "attn_moe": functools.partial(create_selective_checkpoint_contexts,
-                                  _saving(names=_NAMES_SAVED), allow_cache_entry_mutation=True),
-    "dots_attn_moe": functools.partial(create_selective_checkpoint_contexts,
-                                       _saving(_DOTS_SAVED, _NAMES_SAVED),
-                                       allow_cache_entry_mutation=True),
-}
-_REMAT_POLICIES = tuple(_REMAT_CONTEXTS)
+def remat_policy_fn(policy: str):
+    """The selective-checkpoint policy of a remat policy name (None for 'full'): it
+    recomputes every operator run under a name the lean suffixes leave out, keeps
+    the outputs of the base's operators and names, and recomputes the rest. Under
+    'dots_attn_moe', '_alean' also gives up the cross-attention output (JAX
+    dit.py:367-372)."""
+    base, lean = parse_remat_policy(policy)
+    if base == "full":
+        return None
+    ops = _DOTS_SAVED if base.startswith("dots") else ()
+    names = set(_DOTS_NAMES if base.startswith("dots") else ())
+    if base.endswith("attn_moe"):
+        names.update(_NAMES_SAVED)
+        if base == "dots_attn_moe" and "attn_proj" in lean:
+            names.discard("xattn_out")
+
+    def fn(ctx, op, *args, **kwargs):
+        name = current_name()
+        if name in lean or not (op in ops or name in names):
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        return CheckpointPolicy.MUST_SAVE
+    return fn
+
+
+def _remat_context(policy: str):
+    """The selective-checkpoint context of a block under ``policy`` ('full': None).
+    The 'gather' combine adds into the tensor that its first operator made, so under
+    the 'attn_moe' bases the kept entries of the 'moe_out' region change after they
+    are cached (to the kept value)."""
+    fn = remat_policy_fn(policy)
+    if fn is None:
+        return None
+    return functools.partial(create_selective_checkpoint_contexts, fn,
+                             allow_cache_entry_mutation="attn_moe" in policy)
 
 
 class DiT(nn.Module):
@@ -186,10 +222,8 @@ class DiT(nn.Module):
                  fused_adaln: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
-        if remat and remat_policy not in _REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat policy {remat_policy!r} is not ported; only "
-                f"{_REMAT_POLICIES} are (README.md, 'Not ported'; ROADMAP queue A)")
+        if remat:
+            parse_remat_policy(remat_policy)
         self.remat = remat
         self.remat_policy = remat_policy
         self.input_size = input_size
@@ -289,10 +323,12 @@ class DiT(nn.Module):
         """One DiT block; with remat its activations are recomputed in the backward
         (the JAX package's nn.remat): all of them under 'full'; under the other
         policies a selective-checkpoint context keeps the 2-D products' outputs
-        ('dots'), the named attention and MoE outputs ('attn_moe'), or both."""
+        ('dots'), the named attention and MoE outputs ('attn_moe'), or both, less
+        the products that the policy's lean suffixes name. The policy is read here,
+        at each call."""
         if not (self.remat and torch.is_grad_enabled()):
             return block(x, y, c)
-        context = _REMAT_CONTEXTS[self.remat_policy]
+        context = _remat_context(self.remat_policy)
         if context is None:
             return checkpoint(block, x, y, c, use_reentrant=False)
         return checkpoint(block, x, y, c, use_reentrant=False, context_fn=context)

@@ -187,17 +187,12 @@ def load_any_checkpoint(path: str, module: torch.nn.Module | None = None,
     folder of them, the latest step): ``ema_params`` when the checkpoint has them,
     else ``params``, as the JAX package prefers its trainer's EMA for eval. Loaded
     into ``module`` too when one is given. An orbax (JAX) checkpoint directory
-    raises: convert it to a reference ``.pt`` with the JAX package first."""
+    raises, naming the converter (scripts/orbax_to_torch.py), whose output folder
+    loads here."""
     if os.path.isdir(path):
         from ..train.trainer import find_checkpoint  # the trainer imports this module
 
-        try:
-            path = find_checkpoint(path)
-        except ValueError as err:
-            raise ValueError(
-                f"{err}. Restore it with the JAX package and write a reference .pt "
-                "through micro_diffusion_tpu/models/interop.py params_to_torch_state_dict "
-                "(ROADMAP queue A, the orbax converter)") from err
+        path = find_checkpoint(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and "step" in ckpt and isinstance(ckpt.get("params"), dict)):
         return load_torch_checkpoint(path, module, strict)

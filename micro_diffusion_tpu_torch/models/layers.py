@@ -27,7 +27,7 @@ from ..ops.adaln import layernorm_modulate
 from ..ops.attention import dot_product_attention
 from ..ops.moe_dispatch import (combine_expert_rows, combine_rows, dispatch_rows,
                                 gather_expert_rows)
-from ..ops.moe_ffn import _moe_ffn_em_ref, _moe_ffn_ref, moe_ffn, moe_ffn_expert_major
+from ..ops.moe_ffn import _moe_ffn_em_ref, moe_ffn, moe_ffn_expert_major
 from ..ops.remat_names import checkpoint_name
 from ..parallel.sharding import copy_to_group, reduce_from_group
 
@@ -65,15 +65,18 @@ def init_tensor(t: torch.Tensor, spec: tuple, gen: torch.Generator,
 
 
 class Linear(nn.Linear):
-    """nn.Linear with fp32 parameters that computes in ``dtype``; bias inits to 0."""
+    """nn.Linear with fp32 parameters that computes in ``dtype``; bias inits to 0.
+    With ``ckpt_name`` the product runs under that name (ops/remat_names.py), which
+    the lean remat policies recompute."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  init: tuple = XAVIER, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 ckpt_name: str | None = None, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=torch.float32)
         self.init = init
         self.compute_dtype = dtype
+        self.ckpt_name = ckpt_name
 
     def reset_parameters(self) -> None:
         """No-op: ``_init_params`` sets the weights (called by DiT.init_weights)."""
@@ -86,7 +89,8 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        with checkpoint_name(self.ckpt_name):
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -158,19 +162,19 @@ class Mlp(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """SwiGLU feed-forward: w3(silu(w1 x) * w2 x), hidden = 2/3 rounding (dit.py:63-94)."""
+    """SwiGLU feed-forward: w3(silu(w1 x) * w2 x), hidden = 2/3 rounding (dit.py:63-94).
+    The hidden-width products run under 'ffn_hidden' (JAX ``remat_hidden``,
+    layers.py:176-179: the '_xlean' policies recompute them)."""
 
     def __init__(self, dim: int, hidden_dim: int, multiple_of: int, use_bias: bool,
                  w1_init=normal(0.02), w2_init=XAVIER, w3_init=XAVIER,
-                 remat_hidden: bool = False, dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
-        if remat_hidden:
-            raise NotImplementedError(
-                "the lean remat policies are not ported (README.md, 'Not ported'; "
-                "ROADMAP queue A)")
         hidden = self.rounded_hidden(hidden_dim, multiple_of)
-        self.w1 = Linear(dim, hidden, use_bias, init=w1_init, dtype=dtype, device=device)
-        self.w2 = Linear(dim, hidden, use_bias, init=w2_init, dtype=dtype, device=device)
+        self.w1 = Linear(dim, hidden, use_bias, init=w1_init, dtype=dtype,
+                         ckpt_name="ffn_hidden", device=device)
+        self.w2 = Linear(dim, hidden, use_bias, init=w2_init, dtype=dtype,
+                         ckpt_name="ffn_hidden", device=device)
         self.w3 = Linear(hidden, dim, use_bias, init=w3_init, dtype=dtype, device=device)
 
     @staticmethod
@@ -210,7 +214,12 @@ class FeedForwardECMoe(nn.Module):
     flows through topk's values and the gate weighting; the routing indices carry
     none (JAX's stop_gradient, layers.py:439). The combine runs under
     ``checkpoint_name("moe_out")``, JAX's tag (layers.py:303,307,390), for the
-    'attn_moe' remat policies.
+    'attn_moe' remat policies. The expert products of 'unroll', 'scan' and
+    'onehot_dots' run under 'expert_dots': 'dots' keeps them, as JAX's keeps those
+    dispatches' 2-D expert dots, and the '_lean' policies recompute them (JAX
+    ``remat_experts``, layers.py:241-246, 331-339, 454-457); 'batched' is JAX's 3-D
+    einsum, which no policy keeps, and the fused kernels keep their hiddens to
+    themselves, so '_lean' changes nothing there, as in JAX.
 
     Expert parallelism (``set_expert_parallel``, from parallel/sharding.py
     ``shard_params``): the module keeps experts [lo, lo + e_local) of ``w1`` / ``w2``.
@@ -224,15 +233,10 @@ class FeedForwardECMoe(nn.Module):
 
     def __init__(self, num_experts: int, expert_capacity: float, dim: int,
                  hidden_dim: int, multiple_of: int, w2_init=XAVIER,
-                 remat_experts: bool = False, dispatch: str = "onehot",
-                 dtype=torch.bfloat16, device=None):
+                 dispatch: str = "onehot", dtype=torch.bfloat16, device=None):
         super().__init__()
         if dispatch not in MOE_DISPATCH:
             raise ValueError(f"unknown moe_dispatch {dispatch!r}; one of {MOE_DISPATCH}")
-        if remat_experts:
-            raise NotImplementedError(
-                "the lean remat policies are not ported (README.md, 'Not ported'; "
-                "ROADMAP queue A)")
         hidden = multiple_of * ((hidden_dim + multiple_of - 1) // multiple_of)
         self.num_experts = num_experts
         self.expert_capacity = expert_capacity
@@ -299,8 +303,12 @@ class FeedForwardECMoe(nn.Module):
             iota = torch.arange(t, device=x.device)
             onehot = (m[..., None] == iota).to(dt).reshape(n, e * k, t)
             xg = torch.bmm(onehot, x).reshape(n, e, k, d)  # (sample, expert, slot) rows
-            ffn = moe_ffn if self.dispatch == "onehot" else _moe_ffn_ref
-            h = ffn(xg, w1, w2).reshape(n, e * k, d)
+            if self.dispatch == "onehot":
+                h = moe_ffn(xg, w1, w2).reshape(n, e * k, d)
+            else:  # the experts' products on expert-major rows, as 'unroll' runs them
+                h = _moe_ffn_em_ref(xg.transpose(0, 1).reshape(e, n * k, d), w1, w2,
+                                    "expert_dots")
+                h = h.reshape(e, n, k, d).transpose(0, 1).reshape(n, e * k, d)
             weights_t = (onehot * g.reshape(n, e * k, 1)).transpose(1, 2)
             with checkpoint_name("moe_out"):
                 return torch.bmm(weights_t.to(cdt), h.to(cdt))  # (n, t, d)
@@ -309,8 +317,11 @@ class FeedForwardECMoe(nn.Module):
         gidx = m + (torch.arange(n, device=x.device) * t)[:, None, None]  # (n, e, k)
         gidx = gidx.transpose(0, 1).reshape(e, n * k)
         xin = gather_expert_rows(x.reshape(n * t, d), gidx)  # (e, n*k, d)
-        ffn = moe_ffn_expert_major if self.dispatch == "gather" else _moe_ffn_em_ref
-        h = ffn(xin, w1, w2)
+        if self.dispatch == "gather":
+            h = moe_ffn_expert_major(xin, w1, w2)
+        else:
+            h = _moe_ffn_em_ref(xin, w1, w2,
+                                None if self.dispatch == "batched" else "expert_dots")
         out = (h * g.transpose(0, 1).reshape(e, n * k, 1)).to(cdt)
         with checkpoint_name("moe_out"):
             out = combine_expert_rows(out, gidx, n * t)
@@ -322,28 +333,25 @@ class FeedForwardECMoe(nn.Module):
 
 class SelfAttention(nn.Module):
     """Self-attention with fused qkv and non-affine QK-LayerNorm over the flattened
-    head dims (reference utils.py:144-201)."""
+    head dims (reference utils.py:144-201). The projections run under 'attn_proj'
+    (JAX ``remat_proj``, layers.py:521-526: the '_alean' policies recompute them)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  norm_eps: float = 1e-6, hidden_dim: int | None = None,
                  qkv_init=normal(0.02), proj_init=XAVIER, attn_impl: str = "auto",
-                 remat_proj: bool = False, dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
-        if remat_proj:
-            raise NotImplementedError(
-                "the lean remat policies are not ported (README.md, 'Not ported'; "
-                "ROADMAP queue A)")
         hidden = hidden_dim or dim
         assert hidden % num_heads == 0
         self.num_heads = num_heads
         self.hidden = hidden
         self.attn_impl = attn_impl
         self.qkv = Linear(dim, hidden * 3, qkv_bias, init=qkv_init, dtype=dtype,
-                          device=device)
+                          ckpt_name="attn_proj", device=device)
         self.ln_q = LayerNorm(hidden, eps=norm_eps, use_scale=False)
         self.ln_k = LayerNorm(hidden, eps=norm_eps, use_scale=False)
         self.proj = Linear(hidden, dim, qkv_bias, init=proj_init, dtype=dtype,
-                           device=device)
+                           ckpt_name="attn_proj", device=device)
 
     def forward(self, x):
         b, n, _ = x.shape
@@ -358,30 +366,27 @@ class SelfAttention(nn.Module):
 
 class CrossAttention(nn.Module):
     """Cross-attention: q from image tokens, kv from caption tokens, QK-LayerNorm on
-    the flattened hidden dims (reference utils.py:81-141)."""
+    the flattened hidden dims (reference utils.py:81-141); the projections run under
+    'attn_proj', as in SelfAttention."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  norm_eps: float = 1e-6, hidden_dim: int | None = None,
                  qkv_init=normal(0.02), proj_init=XAVIER, attn_impl: str = "auto",
-                 remat_proj: bool = False, dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
-        if remat_proj:
-            raise NotImplementedError(
-                "the lean remat policies are not ported (README.md, 'Not ported'; "
-                "ROADMAP queue A)")
         hidden = hidden_dim or dim
         assert hidden % num_heads == 0
         self.num_heads = num_heads
         self.hidden = hidden
         self.attn_impl = attn_impl
         self.q_linear = Linear(dim, hidden, qkv_bias, init=qkv_init, dtype=dtype,
-                               device=device)
+                               ckpt_name="attn_proj", device=device)
         self.kv_linear = Linear(dim, hidden * 2, qkv_bias, init=qkv_init, dtype=dtype,
-                                device=device)
+                                ckpt_name="attn_proj", device=device)
         self.ln_q = LayerNorm(hidden, eps=norm_eps, use_scale=False)
         self.ln_k = LayerNorm(hidden, eps=norm_eps, use_scale=False)
         self.proj = Linear(hidden, dim, qkv_bias, init=proj_init, dtype=dtype,
-                           device=device)
+                           ckpt_name="attn_proj", device=device)
 
     def forward(self, x, cond):
         b, n, _ = x.shape

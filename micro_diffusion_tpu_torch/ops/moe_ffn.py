@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .remat_names import checkpoint_name
 
 _SRC = "moe_ffn"
 _SRC_BWD = "moe_ffn_bwd"
@@ -222,12 +223,15 @@ def supported_expert_major(m: int, d: int, f: int) -> bool:
     return m % 16 == 0 and d % 128 == 0 and f % 256 == 0
 
 
-def _moe_ffn_em_ref(xg, w1, w2):
+def _moe_ffn_em_ref(xg, w1, w2, ckpt_name=None):
     """Counterpart of the JAX ``_moe_ffn_em_ref`` for shapes K3 does not take: the
-    products come out in the input dtype, GELU runs in fp32."""
-    a = torch.bmm(xg, w1)
+    products come out in the input dtype, GELU runs in fp32. With ``ckpt_name``
+    each product runs under that name (ops/remat_names.py)."""
+    with checkpoint_name(ckpt_name):
+        a = torch.bmm(xg, w1)
     h = F.gelu(a.float()).to(a.dtype)
-    return torch.bmm(h, w2)
+    with checkpoint_name(ckpt_name):
+        return torch.bmm(h, w2)
 
 
 def moe_ffn_expert_major_plain(xg, w1, w2):

@@ -33,8 +33,10 @@ resumes on m. The loader position in them is global.
 
 Not ported, and raising ValueError: the TPU-memory workarounds (``accum_mode:
 dispatch``, ``param_flow_dtype``, the ``host_cadence``/``hostcompute`` EMA
-placements: README.md, 'Not ported') and loading an orbax (JAX) checkpoint
-directory.
+placements: README.md, 'Not ported'). An orbax (JAX) checkpoint directory raises
+too, naming the converter that turns it into a checkpoint folder of this trainer
+where JAX is installed (``scripts/orbax_to_torch.py``: the whole state of a JAX run,
+its loader position included).
 """
 
 import contextlib
@@ -94,7 +96,8 @@ def _step_dirs(folder: str) -> List[int]:
 
 def find_checkpoint(path: str) -> str:
     """The checkpoint file for ``path``: a step directory, or a folder of them
-    (the latest step). Raises for an orbax (JAX) checkpoint directory."""
+    (the latest step). Raises for an orbax (JAX) checkpoint directory, naming the
+    converter: the card's machine has no JAX to read one."""
     if os.path.isfile(os.path.join(path, CKPT_FILE)):
         return os.path.join(path, CKPT_FILE)
     steps = _step_dirs(path)
@@ -102,7 +105,9 @@ def find_checkpoint(path: str) -> str:
         return os.path.join(path, str(steps[-1]), CKPT_FILE)
     if os.path.isdir(path) and any(d.isdigit() for d in os.listdir(path)):
         raise ValueError(f"{path} looks like an orbax (JAX) checkpoint directory; the port "
-                         "loads its own checkpoints and reference .pt files, not orbax")
+                         "loads its own checkpoints and reference .pt files. Convert it "
+                         "where JAX is installed: python scripts/orbax_to_torch.py "
+                         f"{path} OUT [--step N], then load OUT")
     raise FileNotFoundError(f"no checkpoint under {path}")
 
 

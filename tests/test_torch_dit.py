@@ -122,15 +122,20 @@ def test_init_shapes_and_zero_layers():
 
 
 def test_unported_modes_raise():
-    """The remat policies not ported yet (the lean variants) raise naming the
-    ROADMAP; the ones ported with the training slices (remat 'full', 'dots',
-    'attn_moe', 'dots_attn_moe', fused adaLN, mask_ratio > 0, every moe_dispatch,
-    attention 'flash_bh' and 'flash_bthd') build and run."""
-    for policy in ("attn_moe_lean", "dots_attn_moe_xlean", "dots_attn_moe_alean",
-                   "dots_lean"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A remat policy name outside ``<base>[_lean|_xlean][_alean]`` raises (JAX runs
+    an unknown base as 'full'); every lean name of bench.py's ladders builds, as do
+    the modes ported with the training slices (remat 'full', 'dots', 'attn_moe',
+    'dots_attn_moe', fused adaLN, mask_ratio > 0, every moe_dispatch, attention
+    'flash_bh' and 'flash_bthd'), which run."""
+    for policy in ("dot", "dots_lean_xlean", "dots_alean_lean", "dots_alean_alean",
+                   "attn_moe_xlean_lean", "lean"):
+        with pytest.raises(ValueError, match="unknown remat policy"):
             tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta",
                                   remat=True, remat_policy=policy)
+    for policy in ("dots_attn_moe_lean", "dots_attn_moe_xlean", "dots_attn_moe_alean",
+                   "dots_attn_moe_xlean_alean", "attn_moe_lean", "dots_lean", "full_alean"):
+        tdit.MicroDiT_Micro_2(input_size=16, caption_channels=32, device="meta",
+                              remat=True, remat_policy=policy)
     for kw in (dict(remat=True, remat_policy="dots"), dict(remat=True, remat_policy="attn_moe"),
                dict(remat=True, remat_policy="dots_attn_moe"), dict(fused_adaln=True),
                dict(moe_dispatch="gather"), dict(attention_impl="flash_bh"),

@@ -193,7 +193,7 @@ def test_load_any_checkpoint(micro_model, tmp_path):
 
     orbax = tmp_path / "orbax"
     (orbax / "5" / "state").mkdir(parents=True)
-    with pytest.raises(ValueError, match="orbax.*params_to_torch_state_dict"):
+    with pytest.raises(ValueError, match="orbax.*scripts/orbax_to_torch.py"):
         tinterop.load_any_checkpoint(str(orbax))
 
 

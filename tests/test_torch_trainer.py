@@ -593,7 +593,8 @@ def test_train_e2e_script_chains_the_four_stages(tmp_path):
     (dict(ema_placement="hostcompute"), "Not ported"),
     (dict(mesh_shape={"data": 2}), "does not equal the world"),
     (dict(device="tpu"), "'cuda' or 'cpu'"),
-    (dict(load_path="orbax"), "orbax"),
+    pytest.param(dict(load_path="orbax"), "orbax.*scripts/orbax_to_torch.py",
+                 id="change5-orbax"),
 ])
 def test_unported_options_raise(dataset_dir, tmp_path, change, match):
     cfg = make_config(dataset_dir)

@@ -75,18 +75,31 @@ Phases, each of which fails the run on a failed check:
                4 steps and one eval each with the launch counts checked; under
                'auto' one microbatch's gradient under every remat policy against
                'full' and bare steps under each ('full', 'dots', 'attn_moe',
-               'dots_attn_moe'; profiled under 'full' alone); under 'flash_bthd' one
-               microbatch's loss and whole gradient through the kernels against the
-               plain path, and bare steps.
+               'dots_attn_moe', the lean name; BARE_TIMED steps under the overlay's
+               'full', profiled, BARE_TIMED_OTHER under each other, launches
+               checked); under 'flash_bthd' one microbatch's loss and whole gradient
+               through the kernels against the plain path, and bare steps.
   7. stage3  - MicroDiT-XL stage 3 (512px, mask 0.75, mb 32, K = 8, 'gather' with
                the expert-major kernel K3, fp32 EMA from step 2) through
                train.cli.main with the H100 overlay on a seeded synthetic 512px MDS
                set: 4 steps and one eval with the launch counts of every kernel
-               checked, then bare steps under remat 'dots' and 'full' (peaks, times;
-               a profile under 'full', the overlay's policy); two calls of a
-               'gather' MoE layer are bitwise equal.
+               checked, then bare steps under remat 'dots', the two lean names and
+               'full' (peaks, times, launches; a profile under 'full', the overlay's
+               policy); two calls of a 'gather' MoE layer are bitwise equal.
   8. stage4  - the same for stage 4 (mask 0, mb 16, K = 16), and one microbatch's
                loss and whole gradient through the kernels against the plain path.
+     options - the trainer's options on the stage-4 trainer: bare steps under
+               'full' with param_flow_dtype bfloat16 beside [stage4]'s unset ones,
+               the same step otherwise (the in-state EMA included; time, peak, idle
+               share, launches checked); after [sample512], XL stage 4 at batch 32
+               through cli.main with the EMA in the state (fp32, from step 2) and
+               at placement 'hostcompute' (from step 1): the parameters bitwise
+               equal, the EMA within HC_EMA_TOL, the update's host times; an
+               offloaded HostComputeEMA (smoothing 0.5, a step started after each
+               update without waiting) bitwise equal to one decayed on the card; XL stage
+               1 at the v5e stage-1 overlay's mb 128, K = 2, bf16 accumulator
+               under accum_mode 'scan', 'dispatch' (bitwise equal) and 'dispatch'
+               with param_flow_dtype bfloat16 (OPTIONS_FLOW_TOL), launches checked.
      sample512 - a 30-step CFG-5 generate() of 2 prompts at 512px with the stage-4
                model, launch counts checked; then generate(prompt=[2 captions]) ->
                (2, 3, 512, 512) with the same counts, one VAE encode of 2 seeded
@@ -114,6 +127,12 @@ Phases, each of which fails the run on a failed check:
                and off), no DiT kernel launched; the rate over batches 2-4, ms per
                image of each stage, the peak, one more batch under the port's
                profile_trace (device-busy share) and the 37M-image estimate.
+     prepare - raw files of six datasets in their own layouts (JDB archive and
+               jsonl, cc12m tars, SA-1B captions, COCO annotations, DiffusionDB
+               parquet, TextCaps samples) -> the port's download step and converters
+               -> the port's precompute at 256px with the [serve] encoders -> the
+               latents loader -> one MicroDiT-Tiny step through cli.main; the
+               convert and precompute images/s.
   9. chain   - MicroDiT-Tiny through the stage handoffs: stage 2 (256px) saves,
                stage 3 loads its weights only across the pos_embed change (1024
                tokens) and saves, stage 4 loads stage 3's full state (bitwise
@@ -221,7 +240,8 @@ BH_REPLACES = "micro_diffusion_tpu/ops/flash_attention_bh.py:22"      # _fwd_ker
 BH_BWD_REPLACES = "micro_diffusion_tpu/ops/flash_attention_bh.py:48"  # _bwd_kernel
 STAGE_STEPS = 4       # fit steps of [stage3] / [stage4], then one eval
 STAGE_EMA_START = 2   # algorithms.ema.ema_start: the EMA decays from step 2 on
-BARE_TIMED = 3        # bare steps timed per remat policy, after a warm-up step
+BARE_TIMED = 3        # bare steps timed under the overlay's remat policy, after a warm-up
+BARE_TIMED_OTHER = 1  # the same under each other policy: its launches checked, one time
 BARE_MICROBATCHES = 2  # microbatches of a [stage3]/[stage4] bare step
 STAGE_SAMPLES, STAGE_EVAL_SAMPLES = 1024, 256  # 512px synthetic set (32 KB latents each)
 SAMPLE512_PROMPTS = 2  # [sample512]: x2 for CFG, batch 4 through the DiT
@@ -286,6 +306,23 @@ ENCODE_FP32_TOL = 1e-4  # relative L2 of a 256px SDXL encode_mode, card vs CPU, 
                         # operation), far below it
 ENCODE_TF32_TOL = 1e-2  # the same with cuDNN's TF32 on, as the CLI runs: each conv
                         # operand rounded to 10 mantissa bits (2^-11 of a value)
+OPTIONS_STEPS = 2    # [options]: stage-1 fit steps under each accumulation mode
+OPTIONS_MB = 128     # the v5e stage-1 overlay's microbatch: K = 2 of a 256 batch
+OPTIONS_FLOW_TOL = 0.25  # param_flow_dtype bf16 against scan: |p_flow - p_scan| over
+                     # |p_scan - p_init|, the bound JAX holds its flow run to
+                     # (tests/test_train.py:1114-1116); bf16-rounded weights and grads
+OPTIONS_LOSS_TOL = 1e-2  # relative, each step's loss under the flow against scan
+HC_STEPS = 3         # [options] stage-4 fit steps of the EMA placement comparison
+HC_BATCH = 32        # 2 microbatches of the stage-4 overlay's 16
+HC_EMA_TOL = 3e-3    # relative L2, hostcompute EMA against an in_state fp32 EMA of the
+                     # same trajectory: the placement's bf16 copy rounds each parameter's
+                     # contribution by at most 2^-9 of it (JAX's documented numerics)
+HC_CHECK_SMOOTHING = 0.5  # [options] offloaded HostComputeEMA against one on the card: each
+                          # update halves the EMA's weight, so a skipped, doubled or stale
+                          # decay moves every element that the steps moved
+HC_CHECK_UPDATES = 3      # updates of that check, each followed at once by a bare step
+PREPARE_IMAGES = 16  # [prepare]: fixture images per dataset, six datasets
+PREPARE_BATCH = 16   # the precompute's batch and the Tiny step's batch
 
 
 def log(msg):
@@ -1735,6 +1772,245 @@ def run_precompute(enc, tmp):
     return res
 
 
+def seeded_image(rng, wh):
+    """A seeded RGB image of size ``wh``: a smooth colour field with fine noise."""
+    import numpy as np
+    from PIL import Image
+
+    w, h = wh
+    field = Image.fromarray(rng.integers(0, 256, (max(1, h // 40), max(1, w // 40), 3),
+                                         np.uint8))
+    arr = np.asarray(field.resize((w, h), Image.BICUBIC), np.int16)
+    arr = arr + rng.integers(-8, 9, arr.shape, dtype=np.int16)
+    return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+
+def write_prepare_sources(root, n, seed):
+    """Raw files of the six datasets in their own layouts, ``n`` seeded images each
+    (PRECOMPUTE_WH, and for each dataset one more that its filter drops where it has
+    one): a JDB archive (a .tgz of images) with its annotation jsonl, cc12m
+    webdataset tars (jpg + txt pairs), SA-1B images with caption files, COCO images
+    with a captions json, DiffusionDB images with their metadata rows (NSFW scores),
+    and TextCaps samples as the HF dataset yields them. Returns what each converter
+    takes."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    caps = SERVE_CAPTIONS + eval_captions(EVAL_PROMPTS)
+    cap = lambda i: caps[i % len(caps)]
+    small = (200, 180)  # under the 256px minimum side: dropped by the filters
+    out = {}
+
+    def jpeg(img):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    def add(tar, name, data):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tar.addfile(info, io.BytesIO(data))
+
+    # JDB: data/train/imgs/000.tgz + the annotation jsonl (img_path ./000/<name>)
+    jdb = os.path.join(root, "jdb")
+    os.makedirs(jdb)
+    with tarfile.open(os.path.join(jdb, "000.tgz"), "w:gz") as tar:
+        for i in range(n + 1):
+            add(tar, f"{i:04d}.jpg", jpeg(seeded_image(rng, small if i == n else PRECOMPUTE_WH)))
+    with open(os.path.join(jdb, "anno.jsonl"), "w") as f:
+        for i in range(n + 1):
+            f.write(json.dumps({"img_path": f"./000/{i:04d}.jpg", "prompt": cap(i)}) + "\n")
+    out["jdb"] = dict(archive=os.path.join(jdb, "000.tgz"), images=os.path.join(jdb, "imgs"),
+                      captions=os.path.join(jdb, "anno.jsonl"))
+
+    # cc12m: webdataset tars of <key>.jpg + <key>.txt
+    wds = os.path.join(root, "cc12m")
+    os.makedirs(wds)
+    for t in range(2):
+        with tarfile.open(os.path.join(wds, f"cc12m-train-{t:04d}.tar"), "w") as tar:
+            for i in range(t, n + 1, 2):
+                add(tar, f"{i:06d}.jpg", jpeg(seeded_image(
+                    rng, small if i == n else PRECOMPUTE_WH)))
+                add(tar, f"{i:06d}.txt", ("<b>" + cap(i) + "</b> http://x.org/a.jpg").encode())
+    out["cc12m"] = dict(wds=wds)
+
+    # SA-1B: sa_*.jpg under a tar's folder, captions/<stem>.txt (one image without)
+    sa = os.path.join(root, "sa1b")
+    os.makedirs(os.path.join(sa, "raw", "sa_000000"))
+    os.makedirs(os.path.join(sa, "captions"))
+    for i in range(n + 1):
+        seeded_image(rng, PRECOMPUTE_WH).save(
+            os.path.join(sa, "raw", "sa_000000", f"sa_{i}.jpg"), quality=90)
+        if i < n:
+            with open(os.path.join(sa, "captions", f"sa_{i}.txt"), "w") as f:
+                f.write(cap(i) + "\n")
+    out["sa1b"] = dict(images=os.path.join(sa, "raw"), captions=os.path.join(sa, "captions"))
+
+    # COCO: val2014/<file name> + annotations/captions_val2014.json (two captions an
+    # image, and one annotation whose image is missing)
+    from micro_diffusion_tpu_torch.datasets.prepare import coco
+
+    co = os.path.join(root, "coco")
+    os.makedirs(os.path.join(co, "val2014"))
+    os.makedirs(os.path.join(co, "annotations"))
+    anns = []
+    for i in range(n):
+        seeded_image(rng, PRECOMPUTE_WH).save(
+            os.path.join(co, "val2014", coco.image_file_name(100 + i)), quality=90)
+        anns += [{"image_id": 100 + i, "caption": cap(i)},
+                 {"image_id": 100 + i, "caption": cap(i + 1)}]
+    anns.append({"image_id": 99999, "caption": "no image"})
+    with open(os.path.join(co, "annotations", "captions_val2014.json"), "w") as f:
+        json.dump({"annotations": anns}, f)
+    out["coco"] = dict(datadir=co)
+
+    # DiffusionDB: images/part-000001/<name>.webp + metadata rows (one NSFW-scored)
+    dd = os.path.join(root, "diffdb")
+    os.makedirs(os.path.join(dd, "images", "part-000001"))
+    rows = []
+    for i in range(n + 1):
+        name = f"{i:04d}.webp"
+        seeded_image(rng, PRECOMPUTE_WH).save(
+            os.path.join(dd, "images", "part-000001", name), "WEBP")
+        rows.append({"part_id": 1, "image_name": name, "prompt": cap(i),
+                     "image_nsfw": 0.9 if i == n else 0.05, "prompt_nsfw": 0.05})
+    out["diffdb"] = dict(images=dd, rows=rows)
+
+    # TextCaps: the samples the HF dataset yields (one without reference captions)
+    out["textcaps"] = dict(samples=[
+        {"image_height": PRECOMPUTE_WH[1], "image_width": PRECOMPUTE_WH[0],
+         "image": seeded_image(rng, PRECOMPUTE_WH), "image_id": f"tc{i}",
+         "reference_strs": [cap(i), cap(i + 1)] if i < n else []}
+        for i in range(n + 1)])
+    return out
+
+
+def run_prepare(enc, tmp):
+    """The data path from raw files to a train step, with no network and no JAX:
+    seeded raw files of the six datasets (write_prepare_sources), the port's download
+    step (JDB's archive through ``extract_and_filter``) and each converter into an
+    image MDS, the port's precompute at 256px (the CLIP-H tower of ``enc`` in bf16,
+    the SDXL VAE in fp32 with cuDNN TF32 on, each dataset's caption column and
+    cleaning from specs.py), the latents loader over the results, and one
+    MicroDiT-Tiny train step through cli.main on them. DiffusionDB's metadata goes
+    through a parquet file where pandas and pyarrow import, else straight to its row
+    writer. Prints the images/s of the convert and of the precompute."""
+    import numpy as np
+    import torch
+    from micro_diffusion_tpu_torch.datasets.latents_loader import (
+        build_streaming_latents_dataloader)
+    from micro_diffusion_tpu_torch.datasets.mds import MDSReader
+    from micro_diffusion_tpu_torch.datasets.prepare import (cc12m, coco, diffdb, download, jdb,
+                                                            precompute, sa1b, textcaps)
+    from micro_diffusion_tpu_torch.datasets.prepare.specs import DATASETS
+    from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
+    from micro_diffusion_tpu_torch.train import cli
+
+    root = os.path.join(tmp, "prepare")
+    t0 = time.perf_counter()
+    src = write_prepare_sources(os.path.join(root, "raw"), PREPARE_IMAGES, SEED + 50)
+    log(f"[prepare] raw files of six datasets ({PREPARE_IMAGES} images each, one more that "
+        f"a filter drops) written in {time.perf_counter() - t0:.1f} s")
+    try:
+        import pandas  # noqa: F401
+        import pyarrow  # noqa: F401
+        parquet = True
+    except ImportError as err:
+        parquet = False
+        log(f"[prepare] pandas / pyarrow do not import here ({err}): DiffusionDB's rows go "
+            "to its row writer without the parquet file")
+
+    mds = {name: os.path.join(root, "mds", name) for name in src}
+    t_convert = time.perf_counter()
+    kept = download.extract_and_filter(src["jdb"]["archive"],
+                                       os.path.join(src["jdb"]["images"], "000"))
+    written = {
+        "jdb": jdb.convert_to_mds(src["jdb"]["images"], src["jdb"]["captions"], mds["jdb"]),
+        "cc12m": cc12m.convert_to_mds(src["cc12m"]["wds"], mds["cc12m"]),
+        "sa1b": sa1b.convert_to_mds(src["sa1b"]["images"], src["sa1b"]["captions"],
+                                    mds["sa1b"]),
+        "coco": coco.convert_to_mds(src["coco"]["datadir"], mds["coco"]),
+        "textcaps": textcaps.write_samples(src["textcaps"]["samples"], mds["textcaps"]),
+    }
+    rows = src["diffdb"]["rows"]
+    if parquet:
+        import pandas as pd
+
+        meta = os.path.join(src["diffdb"]["images"], "metadata-large.parquet")
+        pd.DataFrame(rows).to_parquet(meta)
+        written["diffdb"] = diffdb.convert_to_mds(src["diffdb"]["images"], mds["diffdb"],
+                                                  metadata_parquet=meta)
+    else:
+        safe = [r for r in rows if max(r["image_nsfw"], r["prompt_nsfw"])
+                <= diffdb.SAFETY_THRESHOLD]
+        written["diffdb"] = diffdb._write_rows(
+            [(src["diffdb"]["images"], r["part_id"], r["image_name"], r["prompt"])
+             for r in safe], mds["diffdb"])
+    convert_s = time.perf_counter() - t_convert
+    total = sum(written.values())
+    log(f"[prepare] download step: {kept} of {PREPARE_IMAGES + 1} JDB archive images kept; "
+        f"converted {written} in {convert_s:.2f} s: {total / convert_s:.1f} images/s "
+        f"(DiffusionDB through {'a parquet file' if parquet else 'its row writer'})")
+    if written != {name: PREPARE_IMAGES for name in src} or kept != PREPARE_IMAGES:
+        raise AssertionError(f"[prepare] converters wrote {written}, JDB kept {kept}; "
+                             f"want {PREPARE_IMAGES} each")
+
+    text_encoder, tokenizer = enc["text_encoder"], enc["tokenizer"]
+    vae = AutoencoderKL(compute_dtype=torch.float32, device="cuda")
+    vae.load_state_dict(enc["vae"].state_dict())
+    latents = {}
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter()
+    with cudnn_tf32(True):
+        for name in src:
+            spec = DATASETS[name]
+            latents[name] = os.path.join(root, "latents", name)
+            counts = precompute.precompute([mds[name]], latents[name], vae, text_encoder,
+                                           tokenizer, batch_size=PREPARE_BATCH,
+                                           resize_sizes=(256,), caption_key=spec.caption_key,
+                                           clean_captions=spec.clean_captions,
+                                           process_index=0, process_count=1, seed=SEED)
+            if tuple(counts) != (PREPARE_IMAGES, 0):
+                raise AssertionError(f"[prepare] precompute {name}: {counts}")
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t_pre
+    n_all = PREPARE_IMAGES * len(src)
+    cleaned = MDSReader(latents["cc12m"])[0]["caption"]
+    log(f"[prepare] precompute of {n_all} images at 256px (six calls, batch "
+        f"{PREPARE_BATCH}, the first call's warm-up included): {pre_s:.2f} s, "
+        f"{n_all / pre_s:.1f} images/s; a cleaned cc12m caption: {cleaned!r}")
+    if "<b>" in cleaned or "http" in cleaned:
+        raise AssertionError(f"[prepare] cc12m's caption was not cleaned: {cleaned!r}")
+
+    dl = build_streaming_latents_dataloader(list(latents.values()), batch_size=PREPARE_BATCH,
+                                            image_size=256, shuffle=False, num_epochs=1)
+    batches = list(dl)
+    lat = np.concatenate([b["image_latents"] for b in batches])
+    if lat.shape != (n_all, 4, 32, 32) or not np.isfinite(lat).all():
+        raise AssertionError(f"[prepare] loader: {lat.shape}, finite {np.isfinite(lat).all()}")
+
+    metrics_path = os.path.join(root, "tiny.jsonl")
+    probe = TrainerProbe()
+    reset_counts()
+    trainer = cli.main(stage_argv(
+        "res_256_pretrain", latents["jdb"], latents["coco"], metrics_path, 1,
+        "model.dit_arch=MicroDiT_Tiny_2", f"dataset.train_batch_size={PREPARE_BATCH}",
+        f"trainer.device_train_microbatch_size={PREPARE_BATCH}",
+        f"dataset.eval_batch_size={PREPARE_BATCH}"), callbacks=[probe])
+    losses, _, _, evals = fit_metrics(metrics_path, 1, "[prepare] Tiny")
+    log(f"[prepare] the loader read {len(batches)} batches of {PREPARE_BATCH} from the six "
+        f"latents sets, all finite; one Tiny step through cli.main on the JDB latents: loss "
+        f"{losses[0]:.4f}, eval on the COCO latents {evals[0]:.4f}, launches {probe.steps[0]}")
+    if not any(probe.steps[0].values()):
+        raise AssertionError("[prepare] the Tiny step launched no kernel")
+    del trainer, vae
+    return dict(written=written, convert_img_per_s=total / convert_s,
+                precompute_img_per_s=n_all / pre_s, parquet=parquet, loss=losses[0])
+
+
 # ------------------------------------------------------------------ train
 
 
@@ -1890,7 +2166,8 @@ def run_train():
 
 def profile_step(fn, top=15, label=f"XL stage-1 train step (mb {TRAIN_MB})"):
     """One train step under torch.profiler: wall time, device busy time (sum of
-    kernel durations on the one stream), idle share, and the top kernels."""
+    kernel durations on the one stream), idle share, and the top kernels; returns
+    the first three (busy and idle None where the profiler saw no kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1906,13 +2183,18 @@ def profile_step(fn, top=15, label=f"XL stage-1 train step (mb {TRAIN_MB})"):
     if busy <= 0:
         log(f"[profile] train step wall {wall:.2f} ms; device time not measured "
             "(the profiler saw no kernels)")
-        return
+        return dict(wall=wall, busy=None, idle=None)
     log(f"[profile] {label}: wall {wall:.2f} ms, device busy "
         f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:110]}")
+    return dict(wall=wall, busy=busy, idle=1 - busy / wall)
+
+
+def share(x):
+    return "not measured" if x is None else f"{x:.3f}"
 
 
 # ------------------------------------------------------------------ trainer
@@ -2772,28 +3054,31 @@ def kept_outputs(policy):
     return ("attn_out", "xattn_out")
 
 
-def bare_policy(trainer, batch, policy, label, rec):
-    """A warm-up and ``BARE_TIMED`` bare train steps under remat ``policy``, their
-    median, its peak memory and the memory resident before them, then, under the
-    overlay's own policy, one profiled step (a profiled XL step costs tens of
-    seconds of script: the profiler's key_averages over ~35k launches). The timed
-    steps' launches must be those of ``rec`` (one microbatch's forward): the
-    attention kernels whose outputs the policy keeps are not launched again."""
+def bare_policy(trainer, batch, policy, label, rec, profile=None):
+    """A warm-up and ``BARE_TIMED`` bare train steps under the overlay's own remat
+    policy, ``BARE_TIMED_OTHER`` under any other ``policy``; their median, its peak
+    memory and the memory resident before them, then, under the overlay's own policy
+    (``profile`` None; True or False: always or never), one profiled step (a
+    profiled XL step costs tens of seconds of script: the profiler's key_averages
+    over ~35k launches). The timed steps' launches must be those of ``rec`` (one
+    microbatch's forward): the attention kernels whose outputs the policy keeps are
+    not launched again."""
     import torch
 
     dit = trainer.model.dit
     saved, dit.remat_policy = dit.remat_policy, policy
+    timed = BARE_TIMED if policy == saved else BARE_TIMED_OTHER
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     bare_steps(trainer, batch, 1)
     reset_counts()
-    times = bare_steps(trainer, batch, BARE_TIMED)
+    times = bare_steps(trainer, batch, timed)
     got = read_counts()
     peak = torch.cuda.max_memory_allocated()
     b = batch["image_latents"].shape[0]
     per_step = rec.step_launches(microbatching(trainer, b)[1], kept_outputs(policy))
-    want = {k: BARE_TIMED * n for k, n in per_step.items()}
+    want = {k: timed * n for k, n in per_step.items()}
     if got != want:
         raise AssertionError(f"{label} bare steps under '{policy}': launches {got} != {want}")
     ms = statistics.median(times)
@@ -2801,17 +3086,19 @@ def bare_policy(trainer, batch, policy, label, rec):
         f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms/step, "
         f"{b / ms * 1e3:.2f} img/s; peak {peak / 2**30:.2f} GiB (resident before "
         f"{resident / 2**30:.2f} GiB); launches per step as expected: {per_step}")
-    if policy == saved:
-        profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
-                     label=f"{label} step, remat '{policy}'")
+    prof = None
+    if profile or (profile is None and policy == saved):
+        prof = profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
+                            label=f"{label} step, remat '{policy}'")
     dit.remat_policy = saved
-    return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, resident=resident, times=times)
+    return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, resident=resident, times=times,
+                profile=prof)
 
 
 def run_stage(tmp, config, label, latent=64):
     """One XL 512px stage through the entry point (the H100 overlay, 'gather', EMA
     from ``STAGE_EMA_START``), then the stage's bare steps under 'dots', the lean
-    names and 'full'."""
+    names and 'full' (the overlays' policy, the one timed in full)."""
     import torch
     from micro_diffusion_tpu_torch.train import cli
 
@@ -2949,6 +3236,270 @@ def run_stage2(tmp):
         del trainer, dit, batch, mb_batch
         free_memory()
     return runs
+
+
+# ------------------------------------------------------------------ options
+
+
+class InitProbe(TrainerProbe):
+    """TrainerProbe that also keeps a copy of the parameters as the fit starts."""
+
+    def fit_start(self, trainer):
+        super().fit_start(trainer)
+        self.init = {k: p.detach().clone() for k, p in trainer.state.params.items()}
+
+
+def rel_l2(got, ref, base=None):
+    """|got - ref| / |ref - base| over whole {name: tensor} dicts (|ref| without
+    ``base``), in float64."""
+    diff2 = sum((got[k].double() - ref[k].double()).square().sum() for k in ref)
+    den2 = sum((ref[k].double() - (base[k].double() if base else 0)).square().sum()
+               for k in ref)
+    return (diff2.sqrt() / den2.sqrt()).item()
+
+
+def run_options_accum(tmp):
+    """[options] (a): the XL stage-1 recipe through cli.main with the v5e stage-1
+    overlay's trainer block (mb 128, K = 2, a bf16 gradient accumulator), on the
+    [trainer] set: OPTIONS_STEPS steps under accum_mode 'scan', 'dispatch' (bitwise
+    equal to scan) and 'dispatch' with param_flow_dtype bfloat16 (within
+    OPTIONS_FLOW_TOL of scan), each with the launch counts of every step checked."""
+    import torch
+    from micro_diffusion_tpu_torch.train import cli
+
+    train_dir, eval_dir = os.path.join(tmp, "train"), os.path.join(tmp, "eval")
+    modes = {"scan": ["trainer.accum_mode=scan"],
+             "dispatch": ["trainer.accum_mode=dispatch"],
+             "dispatch_flow": ["trainer.accum_mode=dispatch",
+                               "trainer.param_flow_dtype=bfloat16"]}
+    runs, ref = {}, None
+    for name, extra in modes.items():
+        label = f"[options] {name}"
+        metrics_path = os.path.join(tmp, f"options_{name}.jsonl")
+        probe = InitProbe()
+        reset_counts()
+        base = torch.cuda.memory_allocated()  # the reference copies kept below
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = cli.main(stage_argv(
+            "res_256_pretrain", train_dir, eval_dir, metrics_path, OPTIONS_STEPS,
+            f"trainer.device_train_microbatch_size={OPTIONS_MB}", "dataset.train_batch_size=256",
+            "trainer.grad_accum_dtype=bfloat16", "trainer.eval_interval=0", *extra),
+            callbacks=[probe])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        mb, k = microbatching(trainer)
+        losses, norms, ips, _ = fit_metrics(metrics_path, OPTIONS_STEPS, label, evals_want=0)
+        train_rec, _ = path_of(trainer, 32)
+        check_launches(label, probe, train_rec.step_launches(k), None, OPTIONS_STEPS)
+        log(f"{label}: accum_mode {trainer.accum_mode}, grad_accum_dtype "
+            f"{trainer.accum_dtype}, param_flow_dtype {trainer.param_flow_dtype}, mb {mb}, "
+            f"K = {k}: {OPTIONS_STEPS} steps in {wall:.1f} s (model build included); peak "
+            f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before the fit")
+        params = {n: p.detach().clone() for n, p in trainer.state.params.items()}
+        run = dict(losses=losses, norms=norms, ips=ips, peak=peak, wall=wall)
+        if ref is None:
+            ref = dict(params=params, init=probe.init, losses=losses)
+        else:
+            equal = sum(bool(torch.equal(params[n], ref["params"][n])) for n in params)
+            drift = rel_l2(params, ref["params"], ref["init"])
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+            run.update(equal=equal, drift=drift, loss_rel=loss_rel)
+            log(f"{label} against scan: {equal} of {len(params)} parameter tensors bitwise "
+                f"equal; |p - p_scan| / |p_scan - p_init| {drift:.3e}; losses {losses} vs "
+                f"{ref['losses']} (largest relative difference {loss_rel:.3e})")
+            if name == "dispatch" and (equal != len(params) or losses != ref["losses"]):
+                raise AssertionError(f"{label}: dispatch must equal scan bit for bit: "
+                                     f"{equal} of {len(params)} tensors, losses {losses}")
+            if name == "dispatch_flow" and not (drift <= OPTIONS_FLOW_TOL
+                                                 and loss_rel <= OPTIONS_LOSS_TOL):
+                raise AssertionError(f"{label}: drift {drift} (tol {OPTIONS_FLOW_TOL}), "
+                                     f"loss rel {loss_rel} (tol {OPTIONS_LOSS_TOL})")
+        runs[name] = run
+        del trainer, params, probe
+        free_memory()
+    return runs
+
+
+def hc_timing(trainer, batch):
+    """One hostcompute EMA update on the trainer's parameters, timed on the host: the
+    call (the bf16 copies taken, the side-stream copies and the host decays queued),
+    a bare step started right after it (whether the copies or decays were still in
+    flight when it started, and its time against a step with no update before it),
+    then the wait for the rest; and one update waited for whole."""
+    import torch
+
+    hc = trainer._hc_ema
+    plain = bare_steps(trainer, batch, 2)[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hc.update(trainer.state.params)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    in_flight = hc.pending()
+    after = bare_steps(trainer, batch, 1)[0]
+    t0 = time.perf_counter()
+    hc.block()
+    rest_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hc.update(trainer.state.params)
+    hc.block()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    return dict(call_ms=call_ms, in_flight_at_next_step=in_flight, step_after_ms=after,
+                step_plain_ms=plain, wait_after_step_ms=rest_ms, whole_update_ms=whole_ms,
+                chunks=len(hc.chunks), host_gib=hc.total_elems * 4 / 2**30)
+
+
+def hc_offload_agrees(trainer, batch):
+    """An offloaded ``HostComputeEMA`` (fp32 chunks in pinned host memory, the bf16
+    copies on a side stream, the decay on the host's worker thread) against one with
+    ``offload=False`` (chunks and decay on the card), on the trainer's parameters at
+    smoothing HC_CHECK_SMOOTHING: HC_CHECK_UPDATES rounds of a bare step and an update
+    of each, the next step started without waiting for the offloaded copy and decay
+    (the step overwrites the parameters in place), then two updates back to back (the
+    second reuses the staging buffers). The arithmetic is the same on both sides, so
+    the chunks must be bitwise equal; and the EMA must differ from the bf16 copy of
+    the current parameters (the decays mixed more than one copy)."""
+    import torch
+    from micro_diffusion_tpu_torch.train.host_ema import HostComputeEMA
+
+    params = trainer.state.params
+    t0 = time.perf_counter()
+    card = HostComputeEMA(params, HC_CHECK_SMOOTHING, offload=False)
+    host = HostComputeEMA(params, HC_CHECK_SMOOTHING)
+    made_s = time.perf_counter() - t0
+    in_flight = []
+    for i in range(HC_CHECK_UPDATES):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 45 + i)
+        trainer.state, _ = trainer._step_fn(trainer.state, batch, gen)
+        card.update(params)
+        host.update(params)
+        in_flight.append(host.pending())
+    for _ in range(2):
+        card.update(params)
+        host.update(params)
+    host.block()
+    torch.cuda.synchronize()
+    n = sum(c.numel() for c in card.chunks)
+    differ = sum(int((h != c.cpu()).sum()) for h, c in zip(host.chunks, card.chunks))
+    mixed = sum(int((c != card._layout.wire(params, k, torch.bfloat16).float()).sum())
+                for k, c in enumerate(card.chunks))
+    log(f"[options] offloaded HostComputeEMA against offload=False, smoothing "
+        f"{HC_CHECK_SMOOTHING}, {HC_CHECK_UPDATES} updates each followed at once by a step "
+        f"(copies or decays in flight as it started: {in_flight}) and 2 back to back: "
+        f"{differ} of {n} fp32 elements differ (want 0); the EMA differs from the bf16 copy "
+        f"of the current parameters in {mixed} ({mixed / n:.3f}); both made in {made_s:.1f} s")
+    if differ or not mixed:
+        raise AssertionError(f"[options] offloaded HostComputeEMA: {differ} elements differ "
+                             f"from the card's, {mixed} mixed")
+    del card, host
+    return dict(differ=differ, mixed=mixed, elements=n, in_flight=in_flight)
+
+
+def run_options_hostcompute(tmp):
+    """[options] (b): XL stage 4 through cli.main with the H100 overlay at batch
+    HC_BATCH (2 microbatches of 16), HC_STEPS steps, twice: the EMA in the state in
+    fp32 from step 2 (it mirrors the parameters before), and placement 'hostcompute'
+    from step 1 (made then from the parameters: JAX's mirror): the same EMA up to
+    the placement's bf16 copy, and the parameters bitwise equal. Then the EMA
+    update's host times (hc_timing) and the offloaded update against one on the card
+    (hc_offload_agrees)."""
+    import torch
+    from micro_diffusion_tpu_torch.train import cli
+
+    train_dir, eval_dir = os.path.join(tmp, "train512"), os.path.join(tmp, "eval512")
+    placements = {"in_state": ["algorithms.ema.ema_start=2ba"],
+                  "hostcompute": ["algorithms.ema.placement=hostcompute",
+                                  "algorithms.ema.ema_start=1ba"]}
+    out, ema = {}, {}
+    for name, extra in placements.items():
+        label = f"[options] stage 4 EMA {name}"
+        metrics_path = os.path.join(tmp, f"options_{name}.jsonl")
+        probe = TrainerProbe()
+        reset_counts()
+        base = torch.cuda.memory_allocated()  # the in_state run's copies, kept below
+        torch.cuda.reset_peak_memory_stats()
+        trainer = cli.main(stage_argv(
+            "res_512_finetune", train_dir, eval_dir, metrics_path, HC_STEPS,
+            f"dataset.train_batch_size={HC_BATCH}", "trainer.eval_interval=0",
+            "algorithms.ema.update_interval=1ba", *extra), callbacks=[probe])
+        peak = torch.cuda.max_memory_allocated() - base
+        mb, k = microbatching(trainer)
+        losses, _, ips, _ = fit_metrics(metrics_path, HC_STEPS, label, evals_want=0)
+        train_rec, _ = path_of(trainer, 64)
+        check_launches(label, probe, train_rec.step_launches(k), None, HC_STEPS)
+        with trainer.eval_weights():
+            ema[name] = {n: p.detach().clone() for n, p in trainer.state.params.items()}
+        run = dict(params={n: p.detach().clone() for n, p in trainer.state.params.items()},
+                   losses=losses, ips=ips, peak=peak)
+        log(f"{label}: placement {trainer.ema_placement}, in the state "
+            f"{trainer.state.ema_params is not None}, mb {mb}, K = {k}; losses {losses}; "
+            f"peak {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before")
+        if name == "hostcompute":
+            if trainer._hc_ema is None or trainer.state.ema_params is not None:
+                raise AssertionError(f"{label}: the EMA is not off the state")
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+            batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
+                     for key, v in train_batch(gen, HC_BATCH, 64).items()}
+            run["timing"] = hc_timing(trainer, batch)
+            run["offload"] = hc_offload_agrees(trainer, batch)
+        out[name] = run
+        del trainer
+        free_memory()
+    a, b = out["in_state"], out["hostcompute"]
+    n_params = len(a["params"])
+    equal = sum(bool(torch.equal(a["params"][n], b["params"][n])) for n in a["params"])
+    rel = rel_l2(ema["hostcompute"], ema["in_state"])
+    lagging = sum(not torch.equal(ema["hostcompute"][n], b["params"][n]) for n in b["params"])
+    t = b["timing"]
+    log(f"[options] stage 4 EMA hostcompute against in_state (fp32): parameters {equal} of "
+        f"{n_params} bitwise equal; EMA relative L2 {rel:.3e} (tol {HC_EMA_TOL}), lagging "
+        f"the parameters in {lagging}")
+    log(f"[options] hostcompute update ({t['chunks']} chunks, {t['host_gib']:.2f} GiB fp32 "
+        f"pinned): the call {t['call_ms']:.1f} ms on the host; copies or decays still in "
+        f"flight when the next step started: {t['in_flight_at_next_step']}; that step "
+        f"{t['step_after_ms']:.1f} ms against {t['step_plain_ms']:.1f} ms with no update "
+        f"before it; then {t['wait_after_step_ms']:.1f} ms more to wait for the decay; one "
+        f"update waited for whole {t['whole_update_ms']:.1f} ms ({smi_line()})")
+    if not (equal == n_params and rel <= HC_EMA_TOL and lagging >= 0.9 * n_params):
+        raise AssertionError(f"[options] hostcompute: params equal {equal}, EMA rel {rel}, "
+                             f"lagging {lagging} of {n_params}")
+    return dict(ema_rel=rel, params_equal=equal, timing=t, offload=b["offload"],
+                losses={n: r["losses"] for n, r in out.items()})
+
+
+def run_options_flow(trainer, unset=None, label="[options] stage 4"):
+    """[options] (c): bare XL stage-4 steps of BARE_MICROBATCHES microbatches under
+    remat 'full' on the [stage4] trainer with param_flow_dtype bfloat16 (a warm-up,
+    BARE_TIMED timed steps with the launch counts checked, one profiled step), right
+    after [stage4]'s bare steps with it unset (``unset``, bare_policy's result; run
+    here first when not given): the step time, the peak and the device's idle share
+    of each. The flow step is the trainer's own (``_make_step``) with only the flow
+    dtype changed: the same accumulator, ZeRO-2 setting and in-state EMA update."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)  # [stage4]'s batch
+    mb, _ = microbatching(trainer)
+    batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
+             for key, v in train_batch(gen, BARE_MICROBATCHES * mb, 64).items()}
+    train_rec, _ = path_of(trainer, 64)
+    if unset is None:
+        unset = bare_policy(trainer, batch, "full", f"{label} param_flow_dtype unset",
+                            train_rec, profile=True)
+    step_fn, flow_dtype = trainer._step_fn, trainer.param_flow_dtype
+    trainer.param_flow_dtype = torch.bfloat16
+    trainer._step_fn = trainer._make_step()
+    flow = bare_policy(trainer, batch, "full", f"{label} param_flow_dtype bfloat16",
+                       train_rec, profile=True)
+    trainer._step_fn, trainer.param_flow_dtype = step_fn, flow_dtype
+    a, b = unset, flow
+    log(f"{label} param_flow_dtype under remat 'full', batch {BARE_MICROBATCHES * mb}: "
+        f"unset {a['ms']:.1f} ms ([stage4]'s steps), peak {a['peak'] / 2**30:.2f} GiB, idle "
+        f"share {share(a['profile']['idle'])} (busy {a['profile']['busy']} ms); bfloat16 "
+        f"{b['ms']:.1f} ms, peak {b['peak'] / 2**30:.2f} GiB, idle share "
+        f"{share(b['profile']['idle'])} (busy {b['profile']['busy']} ms) ({smi_line()})")
+    return {name: {k: r[k] for k in ("ms", "img_per_s", "peak", "times", "profile")}
+            for name, r in (("unset", a), ("bfloat16", b))}
 
 
 def run_sample512(model, prompts=SAMPLE512_PROMPTS, steps=STEPS):
@@ -3229,11 +3780,21 @@ def main():
         s4["cmp"] = compare_train_grads(trainer.model, batch, gen4, label="[stage4]")
         log(f"[phase] stage4 {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
+        op = {"flow": run_options_flow(trainer, s4["policies"]["full"])}
+        log(f"[phase] options flow {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         sp = run_sample512(trainer.model)
         sv = run_serve512(trainer.model, enc, sp["rec"].forward_launches(2 * STEPS - 1))
         del trainer, batch
         free_memory()
         log(f"[phase] sample512 {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- the trainer's options: the EMA placements at stage 4, the
+        # accumulation modes and param_flow_dtype at stage 1
+        t_phase = time.perf_counter()
+        op["hostcompute"] = run_options_hostcompute(tmp)
+        op["accum"] = run_options_accum(tmp)
+        log(f"[phase] options {time.perf_counter() - t_phase:.1f} s")
 
         # ---- the evaluation path at 512px: images -> FID and GenEval
         t_phase = time.perf_counter()
@@ -3244,10 +3805,16 @@ def main():
         # ---- the latent precompute: image MDS -> caption and VAE latents
         t_phase = time.perf_counter()
         pc = run_precompute(enc, tmp)
+        free_memory()
+        log(f"[phase] precompute {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- raw files of the six datasets -> convert -> precompute -> a train step
+        t_phase = time.perf_counter()
+        pr = run_prepare(enc, tmp)
         del enc
         tok_dir.cleanup()
         free_memory()
-        log(f"[phase] precompute {time.perf_counter() - t_phase:.1f} s")
+        log(f"[phase] prepare {time.perf_counter() - t_phase:.1f} s")
 
         # ---- 9. the Tiny stage chain 2 -> 3 -> 4
         t_phase = time.perf_counter()
@@ -3470,6 +4037,8 @@ def main():
             f"decode share {run['decode_share']:.4f}, peak {run['peak_gib']:.2f} GiB")
     log(f"[serve] {json.dumps(dict(serve_256=s256, serve_512=sv, t5=t5))}")
     log(f"[precompute] {json.dumps(pc)}")
+    log(f"[prepare] {json.dumps(pr)}")
+    log(f"[options] {json.dumps(op)}")
     log(f"[phase] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -130,7 +130,11 @@ def _needs_grad(*xs):
 
 def layernorm_modulate(x, weight, shift, scale, eps: float = 1e-6):
     """Fused modulate(LN(x), shift, scale); differentiable. x: (B, T, D); shift and
-    scale: (B, D); weight: (D,) or None (a non-affine LayerNorm)."""
+    scale: (B, D); weight: (D,) or None (a non-affine LayerNorm). A weight in another
+    dtype (a bf16 ``param_flow_dtype`` copy) enters in fp32, as JAX's kernel reads it,
+    and its gradient returns in its own dtype."""
+    if weight is not None and weight.dtype != torch.float32:
+        weight = weight.float()
     if _needs_grad(x, weight, shift, scale):
         return _LayerNormModulate.apply(x, weight, shift, scale, eps, _forward)
     return _forward(x, weight, shift, scale, eps)

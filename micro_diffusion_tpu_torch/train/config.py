@@ -147,7 +147,7 @@ def resolve_target(target: str) -> Callable:
         return getattr(importlib.import_module(module), attr)
     except (ImportError, AttributeError) as err:
         raise ValueError(f"_target_ {target!r} has no counterpart in {_PORT} "
-                         f"({name}: {err})") from err
+                         f"({name}: {err}; README.md, 'Not ported')") from err
 
 
 def instantiate(block: dict, **extra: Any) -> Any:

@@ -2,7 +2,20 @@
 (``Trainer`` :57-772), on one device or one rank of a process group.
 
   * one step per batch through ``make_train_step`` (microbatch accumulation, AdamW
-    with clipping, EMA in the state: the ``in_state`` placement);
+    with clipping, EMA in the state), with ``grad_accum_dtype`` and
+    ``param_flow_dtype``. ``accum_mode: dispatch`` (the v5e overlays) takes the
+    same step: ``make_train_step`` already runs ``make_grad_step`` once per
+    microbatch into a zeroed accumulator and then ``make_apply_step``, which is
+    what JAX's dispatch mode calls one by one (the two modes are semantically
+    identical there too);
+  * the EMA placements (JAX trainer.py:137-155): ``in_state``, the EMA tree in
+    the state, updated inside the step; ``host_cadence``, the same tree updated
+    by ``make_ema_step`` after every ``update_interval``-th step (before
+    ``ema_start`` it mirrors the parameters, at the interval only);
+    ``hostcompute``, fp32 chunks in pinned host memory (train/host_ema.py
+    ``HostComputeEMA``) made at the first update from ``ema_start`` on, saved
+    reassembled on the host in the checkpoint's ``ema_params`` and rebuilt from
+    it on a resume;
   * the next batch is staged while the step runs: copied into pinned host memory
     and to the card on a side stream, which the step's stream waits for before
     use; never past ``max_duration``;
@@ -31,12 +44,10 @@ format, whole tensors by name, written by rank 0 after the shards are gathered,
 and a load on any world size takes its slices, so a checkpoint from n ranks
 resumes on m. The loader position in them is global.
 
-Not ported, and raising ValueError: the TPU-memory workarounds (``accum_mode:
-dispatch``, ``param_flow_dtype``, the ``host_cadence``/``hostcompute`` EMA
-placements: README.md, 'Not ported'). An orbax (JAX) checkpoint directory raises
-too, naming the converter that turns it into a checkpoint folder of this trainer
-where JAX is installed (``scripts/orbax_to_torch.py``: the whole state of a JAX run,
-its loader position included).
+An orbax (JAX) checkpoint directory raises, naming the converter that turns it
+into a checkpoint folder of this trainer where JAX is installed
+(``scripts/orbax_to_torch.py``: the whole state of a JAX run, its loader position
+included).
 """
 
 import contextlib
@@ -54,10 +65,14 @@ from ..models.interop import load_torch_checkpoint
 from ..parallel import Zero2, make_mesh, shard_params
 from .callbacks import Callback, Logger
 from .optim import AdamState, build_optimizer, build_schedule
-from .train_step import create_train_state, make_eval_step, make_train_step
+from .host_ema import HostComputeEMA
+from .train_step import (FLOW_DTYPES, create_train_state, make_ema_step, make_eval_step,
+                         make_train_step)
 
 CKPT_FILE = "checkpoint.pt"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+ACCUM_MODES = ("scan", "dispatch")
+EMA_PLACEMENTS = ("in_state", "host_cadence", "hostcompute")
 
 
 def parse_duration(v: Any) -> int:
@@ -70,11 +85,13 @@ def parse_duration(v: Any) -> int:
     return int(s[:-2])
 
 
-def _dtype(name: Optional[str], what: str) -> Optional[torch.dtype]:
+def _dtype(name: Optional[str], what: str, allowed=tuple(_DTYPES.values())
+           ) -> Optional[torch.dtype]:
     if name is None:
         return None
-    if name not in _DTYPES:
-        raise ValueError(f"{what} {name!r}: one of {sorted(_DTYPES)}")
+    names = sorted(k for k, v in _DTYPES.items() if v in allowed)
+    if name not in names:
+        raise ValueError(f"{what} {name!r}: one of {names}")
     return _DTYPES[name]
 
 
@@ -144,12 +161,11 @@ class Trainer:
         param_flow_dtype: Optional[str] = None,
         **_: Any,
     ):
-        if accum_mode != "scan":
-            raise ValueError(f"accum_mode {accum_mode!r} is a TPU-memory workaround that is "
-                             "not ported; 'scan' is (README.md, 'Not ported'; ROADMAP queue A)")
-        if param_flow_dtype is not None:
-            raise ValueError("param_flow_dtype is a TPU-memory workaround that is not "
-                             "ported (README.md, 'Not ported'; ROADMAP queue A)")
+        if accum_mode not in ACCUM_MODES:
+            raise ValueError(f"accum_mode {accum_mode!r}: one of {ACCUM_MODES}")
+        self.accum_mode = accum_mode
+        self.accum_dtype = _dtype(grad_accum_dtype, "grad_accum_dtype")
+        self.param_flow_dtype = _dtype(param_flow_dtype, "param_flow_dtype", FLOW_DTYPES)
         mesh_shape = {k: v for k, v in (mesh_shape or {}).items() if v is not None}
         self.mesh = None
         if dist.is_initialized():
@@ -187,11 +203,10 @@ class Trainer:
         self.ema_cfg = None
         if ema:
             placement = str(ema.get("placement", "in_state"))
-            if placement != "in_state":
-                raise ValueError(f"EMA placement {placement!r} is a TPU-memory workaround "
-                                 "that is not ported; 'in_state' is "
-                                 "(README.md, 'Not ported'; ROADMAP queue A)")
+            if placement not in EMA_PLACEMENTS:
+                raise ValueError(f"EMA placement {placement!r}: one of {EMA_PLACEMENTS}")
             self.ema_cfg = {
+                "placement": placement,
                 "smoothing": float(ema.get("smoothing", 0.9999)),
                 "ema_start": parse_duration(ema.get("ema_start", 0)),
                 "update_interval": max(1, parse_duration(ema.get("update_interval", 1))),
@@ -210,15 +225,17 @@ class Trainer:
             eps=float(optimizer.get("eps", 1e-8)), clip_norm=clip_norm,
             low_precision_moments=bool(optimizer.get("low_precision_moments", False)),
             mu_dtype=_dtype(optimizer.get("mu_dtype"), "mu_dtype"))
-        self.state = create_train_state(model.dit, self.tx, use_ema=self.ema_cfg is not None,
-                                        ema_dtype=self.ema_cfg["dtype"] if self.ema_cfg else None,
-                                        grad_shardings=self.zero)
-        ema_cfg = self.ema_cfg or {}
-        self._step_fn = make_train_step(
-            model, self.tx, self.lr_schedule, microbatch_size=self.microbatch_size,
-            ema_smoothing=ema_cfg.get("smoothing"), ema_start=ema_cfg.get("ema_start", 0),
-            ema_update_interval=ema_cfg.get("update_interval", 1),
-            accum_dtype=_dtype(grad_accum_dtype, "grad_accum_dtype"), grad_shardings=self.zero)
+        self.ema_placement = self.ema_cfg["placement"] if self.ema_cfg else "in_state"
+        # hostcompute: the EMA lives off the state, made at the first update from
+        # ema_start on (before it the EMA would mirror the parameters)
+        self._hc_ema = None
+        self.state = create_train_state(
+            model.dit, self.tx,
+            use_ema=self.ema_cfg is not None and self.ema_placement != "hostcompute",
+            ema_dtype=self.ema_cfg["dtype"] if self.ema_cfg else None, grad_shardings=self.zero)
+        self._step_fn = self._make_step()
+        self._ema_step = (make_ema_step(self.ema_cfg["smoothing"])
+                          if self.ema_placement == "host_cadence" else None)
         self._eval_fn = make_eval_step(model)
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
@@ -250,12 +267,21 @@ class Trainer:
     def close(self) -> None:
         for logger in self.loggers:
             logger.close()
+        if self._hc_ema is not None:  # its queued decays done, its failure raised
+            self._hc_ema.block()
+
+    def _ema_weights(self) -> Optional[dict]:
+        """The EMA by name on the device, or None where the parameters stand for
+        it (no EMA, or hostcompute before ema_start)."""
+        if self._hc_ema is not None:
+            return self._hc_ema.materialize(self.device)
+        return self.state.ema_params
 
     @contextlib.contextmanager
     def eval_weights(self):
         """Run the model with the EMA weights inside the block, when there is an
         EMA (JAX ``eval_params``); the trained weights are put back after it."""
-        ema = self.state.ema_params
+        ema = self._ema_weights()
         if ema is None:
             yield
             return
@@ -290,11 +316,13 @@ class Trainer:
             loader_state = self.train_loader.state_dict()
         opt = self.state.opt_state
         params, mu, nu, ema = (self.state.params, opt.mu, opt.nu, self.state.ema_params)
+        if self._hc_ema is not None:  # reassembled on the host, as JAX's (:393-398)
+            ema = self._hc_ema.materialize("cpu")
         if self.zero is not None:
             def whole(gather, tree):  # every rank gathers; rank 0 keeps a host copy
                 out = {}
                 for k, v in tree.items():
-                    t = gather(v.detach(), k)
+                    t = gather(v.detach().to(self.device), k)
                     out[k] = t.cpu() if self.is_main else None
                 return out
 
@@ -353,6 +381,32 @@ class Trainer:
         self.print(f"loaded {'weights' if weights_only else 'full state'} from {path} "
                    f"(step {ckpt['step']})")
 
+    def _new_hc_ema(self, params: dict) -> HostComputeEMA:
+        return HostComputeEMA(params, self.ema_cfg["smoothing"],
+                              offload=self.device.type == "cuda")
+
+    def _drop_hc_ema(self) -> None:
+        if self._hc_ema is not None:
+            self._hc_ema.block()
+            self._hc_ema = None
+
+    def _host_ema(self, step: int) -> None:
+        """The host placements' EMA after the optimizer update of (pre-increment)
+        ``step``, at every ``update_interval``-th step (JAX trainer.py:352-381)."""
+        cfg = self.ema_cfg
+        if cfg is None or self.ema_placement == "in_state" or step % cfg["update_interval"]:
+            return
+        if self.ema_placement == "host_cadence":
+            if step < cfg["ema_start"]:
+                self._mirror_ema()
+            else:
+                self.state = self._ema_step(self.state)
+        elif step >= cfg["ema_start"]:  # hostcompute: made by the first update
+            if self._hc_ema is None:
+                self._hc_ema = self._new_hc_ema(self.state.params)
+            else:
+                self._hc_ema.update(self.state.params)
+
     @torch.no_grad()
     def _mirror_ema(self) -> None:
         if self.state.ema_params is not None:
@@ -374,9 +428,10 @@ class Trainer:
 
         for k in params.keys() & loaded.keys():
             params[k].copy_(part(loaded[k], k))
+        self._drop_hc_ema()
         if weights_only:
-            self._mirror_ema()  # the step and optimizer start afresh
-            return
+            self._mirror_ema()  # the step and optimizer start afresh; a hostcompute
+            return              # EMA restarts at ema_start
         opt = ckpt["opt_state"]
         for k in params:
             self.state.opt_state.mu[k].copy_(part(opt["mu"][k], k, state=True))
@@ -388,6 +443,12 @@ class Trainer:
                     e.copy_(part(ckpt["ema_params"][k], k))
             else:  # a stage without EMA chained into one with: mirror the loaded params
                 self._mirror_ema()
+        elif self.ema_placement == "hostcompute" and "ema_params" in ckpt:
+            # the chunks rebuilt from the saved EMA, through the placement's bf16 copy
+            # (JAX :553-568); a checkpoint without one leaves them to ema_start
+            saved = ckpt["ema_params"]
+            self._hc_ema = self._new_hc_ema(
+                {k: part(saved[k], k).to(self.device) for k in params})
         self.state = dataclasses.replace(
             self.state, step=int(ckpt["step"]),
             opt_state=AdamState(count=int(opt["count"]), mu=self.state.opt_state.mu,
@@ -493,6 +554,18 @@ class Trainer:
 
     # ------------------------------------------------------------------ fit
 
+    def _make_step(self):
+        """The train step of the trainer's settings: its microbatch, accumulator and
+        flow dtypes, ZeRO-2 under a mesh, and the EMA inside the step only for the
+        in_state placement."""
+        in_step = (self.ema_cfg or {}) if self.ema_placement == "in_state" else {}
+        return make_train_step(
+            self.model, self.tx, self.lr_schedule, microbatch_size=self.microbatch_size,
+            ema_smoothing=in_step.get("smoothing"), ema_start=in_step.get("ema_start", 0),
+            ema_update_interval=in_step.get("update_interval", 1),
+            accum_dtype=self.accum_dtype, param_flow_dtype=self.param_flow_dtype,
+            grad_shardings=self.zero)
+
     def _train_one_batch(self, batch: Dict[str, torch.Tensor], step: int):
         gen = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, step))
         return self._step_fn(self.state, batch, gen)
@@ -515,6 +588,7 @@ class Trainer:
                     made_progress = True
                     step = self.global_step
                     self.state, metrics = self._train_one_batch(self._take(staged), step)
+                    self._host_ema(step)
                     next_step = step + 1
                     # stage the next batch while this step runs; none past the end
                     staged = None

@@ -326,15 +326,64 @@ def test_cli_on_the_cpu(twins, tmp_path):
 
 
 def test_download_and_convert_pipelines_import_without_jax():
-    """The dataset download and convert pipelines stay unported because they hold no
-    model and no JAX (README.md, 'Not ported'): in a fresh process, importing all of
-    them loads no jax or flax."""
+    """The port's own download and convert pipelines (the eight modules, ported in
+    slice 12): in a fresh process, importing all of them loads no jax, no flax and
+    nothing of the JAX package."""
     names = ["download", "convert", "cc12m", "coco", "diffdb", "jdb", "sa1b", "textcaps"]
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}:\n"
-        "    importlib.import_module('micro_diffusion_tpu.datasets.prepare.' + m)\n"
-        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'flax')]\n"
+        "    importlib.import_module('micro_diffusion_tpu_torch.datasets.prepare.' + m)\n"
+        "bad = [n for n in sys.modules\n"
+        "       if n.split('.')[0] in ('jax', 'flax', 'micro_diffusion_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT)
+
+
+def test_get_dataset_script_on_the_cpu(twins, tmp_path):
+    """micro_diffusion_tpu_torch/get_dataset.sh for coco with --device cpu and
+    --skip-download (no network): the port's coco convert on raw files in COCO's
+    layout, then the port's precompute at 256px over local snapshots of the tiny
+    CLIP and VAE (their configs written here, not in the script), then the latents
+    loader over its output: every image's latents, finite."""
+    from micro_diffusion_tpu_torch.datasets.prepare import coco
+
+    t = twins
+    raw = tmp_path / "coco" / "raw"
+    (raw / "annotations").mkdir(parents=True)
+    (raw / "val2014").mkdir()
+    anns = []
+    rng = np.random.default_rng(7)
+    for i in range(5):
+        Image.fromarray((rng.random((280, 300 + 20 * i, 3)) * 255).astype(np.uint8)).save(
+            raw / "val2014" / coco.image_file_name(i))
+        anns.append({"image_id": i, "caption": f"a test caption number {i}"})
+    with open(raw / "annotations" / "captions_val2014.json", "w") as f:
+        json.dump({"annotations": anns}, f)
+    vae_root = tmp_path / "vae_snapshot"
+    (vae_root / "vae").mkdir(parents=True)
+    (vae_root / "vae" / "config.json").write_text(json.dumps(
+        {"block_out_channels": list(BLOCKS), "layers_per_block": 1, "latent_channels": 4,
+         "scaling_factor": SCALE}))
+    torch.save(t["tv"].state_dict(), str(vae_root / "vae" / "model.pt"))
+    clip_dir = tmp_path / "clip"
+    shutil.copytree(t["clip_dir"], clip_dir)
+    torch.save(t["tenc"].model.state_dict(), str(clip_dir / "model.pt"))
+    env = dict(os.environ, PYTHON=sys.executable, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               VAE_WEIGHTS_DIR=str(vae_root), TEXT_ENCODER_WEIGHTS_DIR=str(clip_dir),
+               TOKENIZER_DIR=t["bpe"])
+    script = os.path.join(ROOT, "micro_diffusion_tpu_torch", "get_dataset.sh")
+    out = subprocess.run(["bash", script, "coco", str(tmp_path / "coco"), "--device", "cpu",
+                          "--skip-download", "--", "--text_encoder", str(clip_dir),
+                          "--batch_size", "4", "--image_resolutions", "256",
+                          "--model_dtype", "float32"],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    latents = str(tmp_path / "coco" / "mds_latents_sdxl1_dfnclipH14")
+    dl = build_streaming_latents_dataloader(latents, batch_size=5, image_size=256,
+                                            cap_seq_size=77, cap_emb_dim=CLIP["width"],
+                                            shuffle=False, num_epochs=1)
+    batch = next(iter(dl))
+    assert batch["image_latents"].shape == (5, 4, 32, 32)
+    assert np.isfinite(batch["image_latents"]).all()

@@ -248,8 +248,9 @@ def test_ema_update_matches_jax(step, start, interval):
 
 def test_train_state_and_unported_options():
     """EMA is a plain copy; the moments follow mu_dtype; the MoE matcher labels
-    nothing by default (modules are named mlp) but is live; the TPU-only options
-    raise naming the README record or their ROADMAP item."""
+    nothing by default (modules are named mlp) but is live; the bf16 parameter flow
+    builds a step that runs (tests/test_torch_options.py holds it against JAX) and
+    a flow dtype it does not take raises; grad_shardings must be a Zero2."""
     model = tdiffusion.create_latent_diffusion(dit_arch="MicroDiT_Micro_2", latent_res=16,
                                                train_mask_ratio=0.75, device="cpu")
     named = dict(model.named_parameters())
@@ -262,9 +263,20 @@ def test_train_state_and_unported_options():
     assert state.opt_state.nu[key].dtype == torch.float32
     assert set(tx.labels.values()) == {"rest"}
     assert set(toptim._label_params(named, "mlp.w").values()) == {"rest", "moe"}
-    with pytest.raises(NotImplementedError, match="Not ported"):
+    tx = toptim.build_optimizer(dict(model.dit.named_parameters()),
+                                toptim.constant_schedule(1e-4))
+    state = ttrain.create_train_state(model.dit, tx)  # the flow names the DiT's parameters
+    step = ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4),
+                                  param_flow_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    data = {"image_latents": torch.randn(2, 4, 16, 16, generator=gen),
+            "caption_latents": torch.randn(2, 1, 77, 1024, generator=gen)}
+    state, metrics = step(state, data, torch.Generator().manual_seed(1))
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    assert all(p.dtype == torch.float32 for p in state.params.values())
+    with pytest.raises(ValueError, match="param_flow_dtype"):
         ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4),
-                               param_flow_dtype=torch.bfloat16)
+                               param_flow_dtype=torch.float64)
     # grad_shardings is the parallel layer's ZeRO-2 (tests/test_torch_parallel.py)
     with pytest.raises(TypeError, match="Zero2"):
         ttrain.make_train_step(model, tx, toptim.constant_schedule(1e-4), grad_shardings={})

@@ -2,7 +2,7 @@
 latents loader batch for batch, the recipe configs and the H100 overlays, the
 whole ``Trainer.fit`` for 3 steps against the JAX ``Trainer.fit`` on the same
 dataset, and the port's checkpointing (resume, weights-only load, the EMA stage
-transition, reference .pt weights) and the options it refuses.
+transition, reference .pt weights), the options it refuses and those it took last.
 
 Everything runs on the CPU in fp32 at Micro size (``trainer.device=cpu``).
 """
@@ -207,8 +207,9 @@ def test_recipes_and_overlays_load():
     # a JAX target resolves to the port's module of the same name once it is ported
     # (the VAE since slice 6, the CLIP vision tower since slice 7, the profiling
     # helpers since slice 8, the parallel layer since slice 9, the native MDS gather
-    # since slice 10), and raises while it is not (utils/platform.py, which the port
-    # does not port: README.md, 'Not ported')
+    # since slice 10, the host-EMA classes and split-dispatch steps since slice 12), and
+    # raises while it is not (utils/platform.py, which the port does not port:
+    # README.md, 'Not ported')
     from micro_diffusion_tpu_torch.datasets.native import gather
     from micro_diffusion_tpu_torch.models.clip_zero_shot import CLIPVisionTransformer
     from micro_diffusion_tpu_torch.models.vae import AutoencoderKL
@@ -223,6 +224,11 @@ def test_recipes_and_overlays_load():
         is StepTimer
     assert tconfig.resolve_target("micro_diffusion_tpu.parallel.mesh.make_mesh") is make_mesh
     assert tconfig.resolve_target("micro_diffusion_tpu.datasets.native.gather") is gather
+    from micro_diffusion_tpu_torch import train as ttrain_pkg
+    for name in ("HostEMA", "AsyncHostEMA", "HostComputeEMA", "make_grad_step",
+                 "make_apply_step", "make_ema_step"):  # since slice 12
+        assert tconfig.resolve_target(f"micro_diffusion_tpu.train.{name}") \
+            is getattr(ttrain_pkg, name)
     for bad in ("os.system",
                 "micro_diffusion_tpu.utils.platform.apply_platform_override",
                 "micro_diffusion_tpu.train.trainer.NoSuchThing"):
@@ -300,7 +306,7 @@ def _fit_parity(cfg, monkeypatch, mask_ratio, res=RES):
     """Trainer.fit of ``cfg`` in both frameworks on the same dataset, the port from
     the JAX trainer's initial params and with its per-step draws; returns both
     trainers, the per-window host metrics of each, and the JAX final params and EMA
-    under the port's names."""
+    (its ``eval_params``, wherever the placement keeps it) under the port's names."""
     # the JAX trainer on one device, as the port's (tests/conftest.py makes 8 CPU devices)
     make_mesh = jtrainer_module.make_mesh
     monkeypatch.setattr(jtrainer_module, "make_mesh", lambda data=None, fsdp=1, tensor=1:
@@ -312,7 +318,7 @@ def _fit_parity(cfg, monkeypatch, mask_ratio, res=RES):
     jtrainer.fit()
     to_torch = lambda tree: tinterop.params_to_torch_state_dict(jax.tree.map(np.asarray, tree))
     jfinal = to_torch(jtrainer.state.params)
-    jema = to_torch(jtrainer.state.ema_params) if jtrainer.state.ema_params is not None else None
+    jema = to_torch(jtrainer.eval_params()) if jtrainer.ema_cfg is not None else None
 
     ptrainer = cli.build_from_config(copy.deepcopy(cfg))
     tinterop.load_jax_params(ptrainer.model.dit, init)
@@ -588,15 +594,18 @@ def test_train_e2e_script_chains_the_four_stages(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(accum_mode="dispatch"), "Not ported"),
-    (dict(param_flow_dtype="bfloat16"), "Not ported"),
-    (dict(ema_placement="hostcompute"), "Not ported"),
+    (dict(accum_mode="bogus"), "accum_mode 'bogus'"),
+    (dict(param_flow_dtype="float32"), "param_flow_dtype 'float32'"),
+    (dict(ema_placement="bogus"), "EMA placement 'bogus'"),
     (dict(mesh_shape={"data": 2}), "does not equal the world"),
     (dict(device="tpu"), "'cuda' or 'cpu'"),
     pytest.param(dict(load_path="orbax"), "orbax.*scripts/orbax_to_torch.py",
                  id="change5-orbax"),
 ])
 def test_unported_options_raise(dataset_dir, tmp_path, change, match):
+    """Options the trainer cannot serve raise ValueError: values outside the
+    accumulation modes, flow dtypes and EMA placements, a mesh the world does not
+    fill, a TPU device, an orbax directory (naming the converter)."""
     cfg = make_config(dataset_dir)
     if "ema_placement" in change:
         cfg["algorithms"]["ema"] = {"smoothing": 0.9, "placement": change["ema_placement"]}
@@ -609,6 +618,28 @@ def test_unported_options_raise(dataset_dir, tmp_path, change, match):
         cfg["trainer"].update(change)
     with pytest.raises(ValueError, match=match):
         cli.build_from_config(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(accum_mode="dispatch", grad_accum_dtype="bfloat16"),
+    dict(param_flow_dtype="bfloat16"),
+    dict(ema_placement="hostcompute"),
+    dict(ema_placement="host_cadence"),
+])
+def test_ported_options_build_and_step(dataset_dir, change):
+    """The options of the JAX trainer that the port took in this slice (they raised
+    before): each builds and takes a step (tests/test_torch_options.py,
+    test_torch_host_ema.py and test_torch_placements.py hold them against JAX)."""
+    cfg = make_config(dataset_dir, max_duration="1ba")
+    if "ema_placement" in change:
+        cfg["algorithms"]["ema"] = {"smoothing": 0.9, "placement": change["ema_placement"]}
+    else:
+        cfg["trainer"].update(change)
+    t = cli.build_from_config(cfg)
+    t.fit()
+    assert t.state.step == 1
+    if "ema_placement" in change:
+        assert t.ema_placement == change["ema_placement"] and t._ema_weights() is not None
 
 
 def test_callbacks_and_loggers(tmp_path):

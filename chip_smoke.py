@@ -44,7 +44,13 @@ Phases, each of which fails the run on a failed check:
                0.75, microbatch 256, AdamW 2.4e-4 / wd 0.1 / clip 0.25, cosine with
                2500 warmup steps): one microbatch's loss and whole gradient through
                the kernels against the plain versions, then a warm-up step and
-               timed steps with the launch counts checked, and a profiled step.
+               timed steps with the launch counts checked, and a profiled step;
+               then one further step traced with every module call named
+               (utils/profiling.py module_scopes), its [attribution] tables: device
+               time by op class and kernel name (scripts/trace_summary.py) and by
+               model component, forward / recompute / backward (scripts/
+               attribute_trace.py), busy + idle = the traced window, the buckets
+               summing to the device ops' time.
   5. trainer - the XL stage-1 recipe through the port's entry point
                (train.cli.main with the H100 overlay: fused adaLN, remat 'full')
                on a seeded synthetic MDS latents dataset: 6 steps at batch 256 and
@@ -67,7 +73,8 @@ Phases, each of which fails the run on a failed check:
                and load seconds, the file's bytes, the peaks; then 2 gloo ranks on
                this card (this script with --dist-rank): which collectives gloo takes
                on CUDA tensors and, where it takes all, one step of XL at full width,
-               depth 4, at mesh (1, 2, 1) and (1, 1, 2) against one rank.
+               depth 4, at mesh (1, 2, 1) and (1, 1, 2) under remat 'full', and at
+               (1, 1, 2) under 'attn_moe', each against one rank under its policy.
      stage2  - MicroDiT-XL stage 2 (256px, mask 0, mb 64, K = 4) through
                train.cli.main with the H100 overlay on the [trainer] set, as the
                overlay stands ('auto': K1, K2, K6) and with
@@ -86,8 +93,10 @@ Phases, each of which fails the run on a failed check:
                checked, then bare steps under remat 'dots', the two lean names and
                'full' (peaks, times, launches; a profile under 'full', the overlay's
                policy); two calls of a 'gather' MoE layer are bitwise equal.
-  8. stage4  - the same for stage 4 (mask 0, mb 16, K = 16), and one microbatch's
-               loss and whole gradient through the kernels against the plain path.
+  8. stage4  - the same for stage 4 (mask 0, mb 16, K = 16), with [attribution]
+               tables of one further bare step under 'full', as in phase 4, and one
+               microbatch's loss and whole gradient through the kernels against the
+               plain path.
      options - the trainer's options on the stage-4 trainer: bare steps under
                'full' with param_flow_dtype bfloat16 beside [stage4]'s unset ones,
                the same step otherwise (the in-state EMA included; time, peak, idle
@@ -218,7 +227,10 @@ DIST_EMA = 0.9999  # [dist] turns the EMA on (from step 1) so the checkpoint car
 DIST_TOL = 1e-5  # relative: [dist]'s losses and grad norms against [trainer]'s, and
                  # the 2-rank gloo steps' against one rank's
 DIST_B_DEPTH, DIST_B_BATCH, DIST_B_MB = 4, 64, 32  # [dist gloo]: XL width, 4 blocks
-DIST_B_MESHES = ((1, 2, 1), (1, 1, 2))
+# (mesh, remat policy) of each 2-rank step: ZeRO-2, then expert parallelism under
+# 'full' and under 'attn_moe' (which keeps the EC-MoE output; the recompute re-issues
+# the sum over tensor), each against one rank under the same policy
+DIST_B_RUNS = (((1, 2, 1), "full"), ((1, 1, 2), "full"), ((1, 1, 2), "attn_moe"))
 DIST_B_PARAM_TOL = {  # relative L2 of all updated parameters together, 2 ranks vs one
     (1, 2, 1): 1e-6,  # ZeRO-2: the same microbatch gradients summed (bitwise here)
     # expert parallelism: the forward is bitwise (the loss too), but in the backward
@@ -321,6 +333,10 @@ HC_CHECK_SMOOTHING = 0.5  # [options] offloaded HostComputeEMA against one on th
                           # update halves the EMA's weight, so a skipped, doubled or stale
                           # decay moves every element that the steps moved
 HC_CHECK_UPDATES = 3      # updates of that check, each followed at once by a bare step
+ATTRIBUTION_STEP = "attributed step"  # the record_function scope around the step that
+                                      # [attribution] traces: the tools' window
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "profile_trace",
+                         "chip_smoke")  # the [attribution] traces, gzipped (git-ignored)
 PREPARE_IMAGES = 16  # [prepare]: fixture images per dataset, six datasets
 PREPARE_BATCH = 16   # the precompute's batch and the Tiny step's batch
 
@@ -2160,6 +2176,7 @@ def run_train():
         f"{TRAIN_MB / ms * 1e3:.2f} img/s; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); remat {REMAT}")
     profile_step(lambda: step(state))
+    attribute_step(lambda: step(state), model, f"XL stage-1 train step (mb {TRAIN_MB})")
     return dict(attn_shapes=attn_shapes, moe_shapes=moe_shapes, launches=launches,
                 ms_per_step=ms, img_per_s=TRAIN_MB / ms * 1e3, peak_bytes=peak, **cmp)
 
@@ -2191,6 +2208,51 @@ def profile_step(fn, top=15, label=f"XL stage-1 train step (mb {TRAIN_MB})"):
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:110]}")
     return dict(wall=wall, busy=busy, idle=1 - busy / wall)
+
+
+def attribute_step(fn, model, label):
+    """One further step ``fn`` under profile_trace, every module call of ``model``
+    named (utils/profiling.py module_scopes) and the step inside the scope
+    ATTRIBUTION_STEP: its Chrome trace gzipped into TRACE_DIR, and the tables of
+    scripts/trace_summary.py (device time by op class and by kernel name, busy and
+    idle) and scripts/attribute_trace.py (by model component and direction) as
+    [attribution] lines. Fails unless busy + idle equals the window, the buckets sum
+    to the device ops' time and the device ran."""
+    import gzip
+    import shutil
+    import torch
+    from micro_diffusion_tpu_torch.scripts import attribute_trace, trace_summary
+    from micro_diffusion_tpu_torch.utils.profiling import module_scopes, profile_trace
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile_trace(TRACE_DIR) as prof:
+        with module_scopes(model), torch.profiler.record_function(ATTRIBUTION_STEP):
+            fn()
+            torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = trace_summary.load(prof.trace_path)
+    summary = trace_summary.summarize(events, ATTRIBUTION_STEP)
+    attr = attribute_trace.attribute(events, ATTRIBUTION_STEP)
+    del events
+    path = prof.trace_path + ".gz"
+    with open(prof.trace_path, "rb") as src, gzip.open(path, "wb", compresslevel=3) as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(prof.trace_path)
+    for line in trace_summary.report(summary) + attribute_trace.report(attr):
+        log(f"[attribution] {label}: {line}")
+    log(f"[attribution] {label}: traced step and export {traced:.1f} s, tables "
+        f"{time.perf_counter() - t0:.1f} s; trace {os.path.relpath(path, ROOT)} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB)")
+    summed = sum(sum(d.values()) for d in attr["buckets"].values())
+    if not (summary["device_ms"] > 0
+            and abs(summary["busy_ms"] + summary["idle_ms"] - summary["window_ms"])
+            <= 1e-6 * summary["window_ms"]
+            and abs(summed - summary["device_ms"]) <= 1e-6 * summary["device_ms"]):
+        raise AssertionError(f"[attribution] {label}: busy {summary['busy_ms']} + idle "
+                             f"{summary['idle_ms']} vs window {summary['window_ms']}, "
+                             f"buckets {summed} vs device {summary['device_ms']}")
 
 
 def share(x):
@@ -2719,10 +2781,10 @@ def run_dist(tmp, tn):
     return result
 
 
-def xl_cut_model():
+def xl_cut_model(policy="full"):
     """MicroDiT-XL at full width (dim 1024, mixer 6 x 768, 8 experts) with the
-    backbone cut to ``DIST_B_DEPTH`` blocks, the stage-1 overlay's settings, the
-    zero-initialised layers perturbed."""
+    backbone cut to ``DIST_B_DEPTH`` blocks, the stage-1 overlay's settings but the
+    remat ``policy``, the zero-initialised layers perturbed."""
     import torch
     from micro_diffusion_tpu_torch.models import dit as tdit
     from micro_diffusion_tpu_torch.models.diffusion import LatentDiffusion
@@ -2730,7 +2792,7 @@ def xl_cut_model():
     dit = tdit._zoo(DIST_B_DEPTH, 1024, 64, 256, 6, 768, (0.5, 1.0), (0.5, 4.0),
                     caption_channels=1024, input_size=32, num_experts=8, expert_capacity=2.0,
                     experts_every_n=2, in_channels=4, dtype=torch.bfloat16, remat=True,
-                    remat_policy="full", moe_dispatch="onehot", fused_adaln=True,
+                    remat_policy=policy, moe_dispatch="onehot", fused_adaln=True,
                     device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dit.init_weights(gen)
@@ -2748,17 +2810,17 @@ def moe_leaf_names(dit):
     return names
 
 
-def xl_cut_step(mesh=None):
-    """One step of the cut XL model on its rows of a seeded global batch of
-    ``DIST_B_BATCH`` in microbatches of ``DIST_B_MB`` (constant lr 1e-4, clip 0.25);
-    (loss, grad norm, whole parameters, whole first moments of the gate and expert
-    leaves; on the host)."""
+def xl_cut_step(mesh=None, policy="full"):
+    """One step of the cut XL model under remat ``policy`` on its rows of a seeded
+    global batch of ``DIST_B_BATCH`` in microbatches of ``DIST_B_MB`` (constant lr
+    1e-4, clip 0.25); (loss, grad norm, whole parameters, whole first moments of the
+    gate and expert leaves; on the host)."""
     import torch
     from micro_diffusion_tpu_torch.parallel import Zero2, batch_sharding, shard_params
     from micro_diffusion_tpu_torch.train.optim import build_optimizer, constant_schedule
     from micro_diffusion_tpu_torch.train.train_step import create_train_state, make_train_step
 
-    model = xl_cut_model()
+    model = xl_cut_model(policy)
     zero = None
     if mesh is not None:
         shard_params(model.dit, mesh)
@@ -2829,7 +2891,7 @@ def gloo_cuda_probe(rank):
 def dist_rank_main(out_path):
     """One of 2 gloo ranks sharing this card (``run_dist_gloo``): the collective
     probe, then, when every collective takes CUDA tensors, one cut-XL step at each
-    mesh of ``DIST_B_MESHES``; rank 0 writes the results."""
+    (mesh, policy) of ``DIST_B_RUNS``; rank 0 writes the results."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -2844,12 +2906,12 @@ def dist_rank_main(out_path):
     rank = dist.get_rank()
     res = {"probe": gloo_cuda_probe(rank), "steps": {}}
     if all(v == "ok" for v in res["probe"].values()):
-        for shape in DIST_B_MESHES:
+        for shape, policy in DIST_B_RUNS:
             mesh = make_mesh(*shape)
             t0 = time.perf_counter()
-            loss, norm, params, moe_mu = xl_cut_step(mesh)
-            res["steps"][shape] = dict(loss=loss, grad_norm=norm, params=params, moe_mu=moe_mu,
-                                       seconds=time.perf_counter() - t0)
+            loss, norm, params, moe_mu = xl_cut_step(mesh, policy)
+            res["steps"][shape, policy] = dict(loss=loss, grad_norm=norm, params=params,
+                                               moe_mu=moe_mu, seconds=time.perf_counter() - t0)
             del params, moe_mu
     if rank == 0:
         torch.save(res, out_path)
@@ -2860,10 +2922,10 @@ def dist_rank_main(out_path):
 def run_dist_gloo(tmp):
     """(b) 2 gloo ranks on this card: the collective probe; when every collective
     takes CUDA tensors, one step of XL at full width, depth cut to DIST_B_DEPTH, at
-    mesh (1, 2, 1) and (1, 1, 2), each against the same step on one rank (no group):
-    loss and grad norm within DIST_TOL relative, the parameters within
-    DIST_B_PARAM_TOL[mesh] relative L2, and each gate and expert leaf's first
-    moment within DIST_B_MOE_GRAD_TOL."""
+    each (mesh, remat policy) of DIST_B_RUNS, each against the same step on one rank
+    (no group) under the same policy: loss and grad norm within DIST_TOL relative,
+    the parameters within DIST_B_PARAM_TOL[mesh] relative L2, and each gate and
+    expert leaf's first moment within DIST_B_MOE_GRAD_TOL."""
     import torch
     from micro_diffusion_tpu_torch.parallel import dryrun
 
@@ -2881,9 +2943,14 @@ def run_dist_gloo(tmp):
         log("[dist gloo] gloo does not take CUDA tensors in every collective the layer "
             "uses: no 2-rank steps on the card; the CPU tests carry the multi-rank parity")
         return summary
-    loss, norm, params, moe_mu = xl_cut_step()
-    ref2 = sum(v.double().square().sum() for v in params.values())
-    for shape, got in res["steps"].items():
+    refs = {}
+    for (shape, policy), got in res["steps"].items():
+        if policy not in refs:
+            refs.clear()  # one reference on the card at a time
+            free_memory()
+            refs[policy] = xl_cut_step(policy=policy)
+        loss, norm, params, moe_mu = refs[policy]
+        ref2 = sum(v.double().square().sum() for v in params.values())
         diffs = {k: float((got["params"][k].double() - v.double()).square().sum())
                  for k, v in params.items()}
         rel_p = float(sum(diffs.values()) ** 0.5 / ref2.sqrt())
@@ -2896,7 +2963,8 @@ def run_dist_gloo(tmp):
         worst_grad = max(grad, key=grad.get)
         rel_l, rel_n = abs(got["loss"] - loss) / abs(loss), abs(got["grad_norm"] - norm) / norm
         tol = DIST_B_PARAM_TOL[shape]
-        log(f"[dist gloo] mesh {shape}, XL width depth {DIST_B_DEPTH}, batch {DIST_B_BATCH} "
+        log(f"[dist gloo] mesh {shape}, remat '{policy}', XL width depth {DIST_B_DEPTH}, "
+            f"batch {DIST_B_BATCH} "
             f"(mb {DIST_B_MB}): loss {got['loss']:.6f} vs one rank {loss:.6f} (rel {rel_l:.3e}), "
             f"grad norm {got['grad_norm']:.6f} vs {norm:.6f} (rel {rel_n:.3e}), parameters "
             f"relative L2 {rel_p:.3e} (tol {DIST_TOL} / {tol}; largest in {worst}, "
@@ -2907,13 +2975,13 @@ def run_dist_gloo(tmp):
             f"step {got['seconds']:.1f} s (model build included)")
         if not (rel_l <= DIST_TOL and rel_n <= DIST_TOL and rel_p <= tol
                 and grad[worst_grad] <= DIST_B_MOE_GRAD_TOL):
-            raise AssertionError(f"[dist gloo] mesh {shape}: loss {rel_l}, norm {rel_n}, "
+            raise AssertionError(f"[dist gloo] mesh {shape} '{policy}': loss {rel_l}, norm {rel_n}, "
                                  f"params {rel_p}, {worst_grad} first moment {grad[worst_grad]}")
-        summary["steps"][str(shape)] = dict(
+        summary["steps"][f"{shape} {policy}"] = dict(
             rel_loss=rel_l, rel_norm=rel_n, rel_params=rel_p, worst_leaf=worst_leaf,
             worst_leaf_rel=leaf[worst_leaf], worst_moe_grad=worst_grad,
             worst_moe_grad_rel=grad[worst_grad])
-    del params
+    refs.clear()
     free_memory()
     return summary
 
@@ -3054,13 +3122,14 @@ def kept_outputs(policy):
     return ("attn_out", "xattn_out")
 
 
-def bare_policy(trainer, batch, policy, label, rec, profile=None):
+def bare_policy(trainer, batch, policy, label, rec, profile=None, attribute=False):
     """A warm-up and ``BARE_TIMED`` bare train steps under the overlay's own remat
     policy, ``BARE_TIMED_OTHER`` under any other ``policy``; their median, its peak
     memory and the memory resident before them, then, under the overlay's own policy
     (``profile`` None; True or False: always or never), one profiled step (a
     profiled XL step costs tens of seconds of script: the profiler's key_averages
-    over ~35k launches). The timed steps' launches must be those of ``rec`` (one
+    over ~35k launches), and with ``attribute`` one further step for
+    ``attribute_step``. The timed steps' launches must be those of ``rec`` (one
     microbatch's forward): the attention kernels whose outputs the policy keeps are
     not launched again."""
     import torch
@@ -3090,15 +3159,19 @@ def bare_policy(trainer, batch, policy, label, rec, profile=None):
     if profile or (profile is None and policy == saved):
         prof = profile_step(lambda: bare_steps(trainer, batch, 1), top=8,
                             label=f"{label} step, remat '{policy}'")
+    if attribute and policy == saved:
+        attribute_step(lambda: bare_steps(trainer, batch, 1), trainer.model,
+                       f"{label} bare step, remat '{policy}'")
     dit.remat_policy = saved
     return dict(ms=ms, img_per_s=b / ms * 1e3, peak=peak, resident=resident, times=times,
                 profile=prof)
 
 
-def run_stage(tmp, config, label, latent=64):
+def run_stage(tmp, config, label, latent=64, attribute=False):
     """One XL 512px stage through the entry point (the H100 overlay, 'gather', EMA
     from ``STAGE_EMA_START``), then the stage's bare steps under 'dots', the lean
-    names and 'full' (the overlays' policy, the one timed in full)."""
+    names and 'full' (the overlays' policy, the one timed in full; with
+    ``attribute`` its step's [attribution] tables too)."""
     import torch
     from micro_diffusion_tpu_torch.train import cli
 
@@ -3153,7 +3226,7 @@ def run_stage(tmp, config, label, latent=64):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
              for key, v in train_batch(gen, BARE_MICROBATCHES * mb, latent).items()}
-    policies = {p: bare_policy(trainer, batch, p, label, train_rec)
+    policies = {p: bare_policy(trainer, batch, p, label, train_rec, attribute=attribute)
                 for p in ("dots",) + LEAN_POLICIES + ("full",)}
     return trainer, dict(train_rec=train_rec, want=want, want_eval=want_eval, k=k, mb=mb,
                          policy=dit.remat_policy,
@@ -3773,7 +3846,7 @@ def main():
 
         # ---- 8. stage 4 and one microbatch kernels-vs-plain; the 512px sampler
         t_phase = time.perf_counter()
-        trainer, s4 = run_stage(tmp, "res_512_finetune", "[stage4]")
+        trainer, s4 = run_stage(tmp, "res_512_finetune", "[stage4]", attribute=True)
         gen4 = torch.Generator(device="cuda").manual_seed(SEED + 8)
         batch = {key: v.half() if v.dtype == torch.float32 and v.dim() > 1 else v
                  for key, v in train_batch(gen4, s4["mb"], 64).items()}

@@ -23,7 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.masking import TokenMask, gather_tokens, make_token_mask, scatter_tokens
-from ..ops.remat_names import current_name
+from ..ops.remat_names import GROUP_SUM, current_name
 
 from .layers import (
     XAVIER,
@@ -186,7 +186,7 @@ def remat_policy_fn(policy: str):
 
     def fn(ctx, op, *args, **kwargs):
         name = current_name()
-        if name in lean or not (op in ops or name in names):
+        if name in lean or name == GROUP_SUM or not (op in ops or name in names):
             return CheckpointPolicy.PREFER_RECOMPUTE
         return CheckpointPolicy.MUST_SAVE
     return fn

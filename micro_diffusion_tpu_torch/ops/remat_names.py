@@ -24,6 +24,12 @@ before its operator test (models/dit.py ``remat_policy_fn``):
     'scan', 'onehot_dots'), which 'dots' keeps as JAX keeps their 2-D dots, and
     ``_lean`` / ``_xlean`` do not.
 
+One name is never kept:
+
+  * ``group_sum``   - the expert-parallel sum of the partial EC-MoE outputs over the
+    ``tensor`` group (parallel/sharding.py ``_ReduceFromGroup``), an all-reduce in
+    place on a copy; the recompute runs both again.
+
 Names rather than JAX's batch-1 product, because a lean product then runs the very
 operator that a kept one runs, so a lean policy changes no value, bit for bit (a
 batch-1 ``bmm`` is another GEMM than ``addmm`` on the card); and because the policy
@@ -33,6 +39,8 @@ flag, and a model follows ``remat_policy`` whenever it is changed.
 
 import contextlib
 import threading
+
+GROUP_SUM = "group_sum"
 
 _state = threading.local()
 

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..ops.remat_names import GROUP_SUM, checkpoint_name
 from .mesh import DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, Mesh
 
 # elements per bucket of one collective: 256 MB of fp32, a bound on the extra memory
@@ -91,15 +92,11 @@ def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Apply the parameter rules to ``model`` in place: every EC-MoE module whose
     ``w1`` / ``w2`` the rules split over ``tensor`` keeps this rank's experts only
     and runs expert-parallel. Returns ``model``."""
-    policy = getattr(model, "remat_policy", "full") if getattr(model, "remat", False) else None
     for name, mod in model.named_modules():
         if not hasattr(mod, "set_expert_parallel"):
             continue
         specs = {param_spec(f"{name}.{w}", getattr(mod, w), mesh) for w in ("w1", "w2")}
         if specs == {(TENSOR_AXIS, None, None)}:
-            if policy not in (None, "full"):
-                raise ValueError(f"expert parallelism (tensor > 1) runs under remat "
-                                 f"policy 'full' or without remat, not {policy!r}")
             mod.set_expert_parallel(mesh.group(TENSOR_AXIS), mesh.index(TENSOR_AXIS),
                                     mesh.axis_size(TENSOR_AXIS))
     return model
@@ -158,12 +155,20 @@ class _CopyToGroup(torch.autograd.Function):
 
 class _ReduceFromGroup(torch.autograd.Function):
     """Sum over the group forward (each rank's partial output); identity backward
-    (the sum is replicated, so is its gradient)."""
+    (the sum is replicated, so is its gradient).
+
+    The sum is taken in place on a copy, under the name ``group_sum``, which every
+    remat policy recomputes (models/dit.py ``remat_policy_fn``): a policy that kept
+    the copy would hand the recompute the summed buffer to sum again, and one that
+    kept the in-place sum would hand it the unsummed copy. So under every policy
+    the recompute of a block re-issues the sum on every rank of the group, in the
+    block order of the backward, as under 'full'."""
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        with checkpoint_name(GROUP_SUM):
+            out = x.contiguous().clone()
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod

@@ -229,6 +229,26 @@ def test_sharded_steps_match_one_process(runs, shape, scenario):
                                        atol=ATOL, err_msg=f"{shape} {kind} {name}")
 
 
+@pytest.mark.parametrize("policy", worker.REMAT_POLICIES)
+def test_expert_parallel_remat_matches_one_process(runs, policy):
+    """Expert parallelism (tensor 2 of mesh (1, 2, 2)) with the blocks under a
+    selective remat policy: 'attn_moe' keeps the EC-MoE output, 'dots' the 2-D
+    products; the recompute re-issues the sum over tensor on every rank. Two K = 2
+    steps with injected draws against the same steps under the same policy in one
+    process, to the tolerances of the unrematerialised runs."""
+    shape = next(s for s in MESHES if s[2] > 1)
+    inputs = runs["inputs"][shape]
+    got = runs[shape].result()["remat"][policy]
+    ref = worker.run(inputs, "injected", ROWS_PER_RANK // 2, remat_policy=policy)
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["grad_norm"], ref["grad_norm"], rtol=RTOL, atol=ATOL)
+    for kind in ("params", "mu", "nu", "ema"):
+        assert set(got[kind]) == set(ref[kind])
+        for name, r in ref[kind].items():
+            np.testing.assert_allclose(got[kind][name].numpy(), r.numpy(), rtol=RTOL,
+                                       atol=ATOL, err_msg=f"{policy} {kind} {name}")
+
+
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
 def test_sharded_steps_match_jax(runs, shape):
     """Loss and grad norm of both steps against JAX's step on the same mesh, with

@@ -8,7 +8,8 @@ sets it). ``INPUTS`` (torch.save) holds the DiT weights by name, the global batc
 and the per-row draws of each step; every scenario of ``SCENARIOS`` runs
 ``len(batches)`` steps from those weights on this rank's rows, and rank 0 writes
 each scenario's losses, grad norms and whole params / mu / nu / EMA to ``OUT``,
-and the shape of ``make_multislice_mesh`` over DATA nodes.
+with TENSOR > 1 also the injected draws under each of ``REMAT_POLICIES`` (under
+``"remat"``), and the shape of ``make_multislice_mesh`` over DATA nodes.
 Imports no JAX.
 """
 
@@ -35,6 +36,10 @@ PAR = dict(patch_size=2, in_channels=4, depth=3, qkv_multipliers=(1.0,),
 LATENT, CAPTION = 8, (8, 16)
 LR, CLIP, EMA, SEED = 1e-4, 0.25, 0.99, 11
 SCENARIOS = ("injected", "generator")
+# expert parallelism under selective remat: the injected draws with the DiT's blocks
+# checkpointed under each policy, run where the mesh has tensor > 1 ('attn_moe' keeps
+# the MoE output, 'dots' the 2-D products)
+REMAT_POLICIES = ("attn_moe", "dots")
 
 
 def weights(seed: int = 0) -> dict:
@@ -46,16 +51,19 @@ def weights(seed: int = 0) -> dict:
             for k, v in dit.state_dict().items()}
 
 
-def build(weights: dict) -> LatentDiffusion:
-    dit = DiT(dtype=torch.float32, device="cpu", **PAR)
+def build(weights: dict, remat_policy: str | None = None) -> LatentDiffusion:
+    dit = DiT(dtype=torch.float32, device="cpu", remat=remat_policy is not None,
+              remat_policy=remat_policy or "full", **PAR)
     dit.load_state_dict(weights)
     return LatentDiffusion(dit, latent_res=LATENT, train_mask_ratio=0.75, latent_scale=1.0)
 
 
-def run(inputs: dict, scenario: str, microbatch: int, mesh=None) -> dict:
+def run(inputs: dict, scenario: str, microbatch: int, mesh=None,
+        remat_policy: str | None = None) -> dict:
     """The steps of ``inputs`` on this rank's rows (all rows without a mesh), in
-    microbatches of ``microbatch``; whole tensors by name from every rank."""
-    model = build(inputs["weights"])
+    microbatches of ``microbatch``, the blocks under ``remat_policy`` (None: no
+    remat); whole tensors by name from every rank."""
+    model = build(inputs["weights"], remat_policy)
     zero = None
     if mesh is not None:
         shard_params(model.dit, mesh)
@@ -97,6 +105,9 @@ def main(inputs_path, out_path, data, fsdp, tensor) -> None:
     inputs = torch.load(inputs_path, weights_only=True)
     rows = inputs["batches"][0]["image_latents"].shape[0] // mesh.axis_size("batch")
     results = {s: run(inputs, s, rows // 2, mesh) for s in SCENARIOS}
+    if int(tensor) > 1:
+        results["remat"] = {p: run(inputs, "injected", rows // 2, mesh, p)
+                            for p in REMAT_POLICIES}
     # the same world as `data` nodes of fsdp x tensor ranks each
     os.environ["LOCAL_WORLD_SIZE"] = str(int(fsdp) * int(tensor))
     results["multislice"] = make_multislice_mesh(int(data), int(fsdp), int(tensor)).shape

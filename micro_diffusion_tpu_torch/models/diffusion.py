@@ -14,10 +14,14 @@ classifier-free guidance) as a Python loop over steps, with the Heun correction 
 every step but the last, then decodes with the VAE into images in [0, 1]. The sigma
 schedule is host float64 numpy (bit-identical to the JAX package); the per-step
 scalars are rounded to float32 on the host as the JAX loop carries them, and x is
-carried in float32.
+carried in float32. A ``generate`` call is a ``sample.call`` span of utils/profiling.py
+(its unit the process's call ordinal) holding ``sample.encode``, one
+``sample.forward`` per guided denoiser call and ``sample.decode``, each with device
+ends.
 """
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -27,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.masking import make_token_mask
+from ..utils.profiling import span
 from . import dit as model_zoo
 from .dit import resolve_device
 
@@ -73,6 +78,9 @@ VAE_SCALING_FACTORS = {
     "stabilityai/stable-diffusion-xl-base-1.0": 0.13025,
     "ostris/vae-kl-f8-d16": 1.0,
 }
+
+_calls = itertools.count()  # generate calls of the process: the sample.call span's unit
+
 
 class LatentDiffusion(nn.Module):
     """DiT denoiser with the EDM preconditioning and Heun sampler, and the frozen
@@ -247,7 +255,8 @@ class LatentDiffusion(nn.Module):
 
         def denoise(x_in, sigma):
             s = torch.full((1,), float(sigma), dtype=torch.float32, device=x_in.device)
-            return self.model_forward_wrapper(x_in, s, y, cfg=guide)["sample"]
+            with span("sample.forward", device=x_in.device):
+                return self.model_forward_wrapper(x_in, s, y, cfg=guide)["sample"]
 
         x_cur = x.float() * float(np.float32(t_np[0]))
         for i in range(num_steps):
@@ -300,18 +309,22 @@ class LatentDiffusion(nn.Module):
         """
         if prompt is None and tokenized_prompts is None and text_embeddings is None:
             raise ValueError("Must provide either prompt or tokenized prompts")
-        if text_embeddings is None:
-            text_embeddings = self.encode_prompts(prompt, tokenized_prompts, attention_mask)
         device = self.dit.pos_embed.device
-        gen = torch.Generator(device=device).manual_seed(seed if seed else 0)
-        y = torch.as_tensor(text_embeddings, device=device)
-        shape = (y.shape[0], self.dit.in_channels, self.latent_res, self.latent_res)
-        latents = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        latents = self.edm_sampler_loop(latents, y, steps=num_inference_steps,
-                                        cfg=guidance_scale, generator=gen)
-        if return_only_latents:
-            return latents
-        return self.decode_latents(latents)
+        with span("sample.call", unit=next(_calls)):
+            if text_embeddings is None:
+                with span("sample.encode", device=device):
+                    text_embeddings = self.encode_prompts(prompt, tokenized_prompts,
+                                                          attention_mask)
+            gen = torch.Generator(device=device).manual_seed(seed if seed else 0)
+            y = torch.as_tensor(text_embeddings, device=device)
+            shape = (y.shape[0], self.dit.in_channels, self.latent_res, self.latent_res)
+            latents = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            latents = self.edm_sampler_loop(latents, y, steps=num_inference_steps,
+                                            cfg=guidance_scale, generator=gen)
+            if return_only_latents:
+                return latents
+            with span("sample.decode", device=device):
+                return self.decode_latents(latents)
 
 
 def create_latent_diffusion(

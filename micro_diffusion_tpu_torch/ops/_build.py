@@ -8,7 +8,9 @@ rebuilt and an unchanged one is reused.
 
 Nothing is compiled at import: the first wrapper that launches a kernel calls
 :func:`load`. :func:`build_all` starts one ``nvcc`` per source at once, for
-callers that want the whole build up front (``chip_smoke.py``).
+callers that want the whole build up front (``chip_smoke.py``). Both are
+``kernels.build`` spans (utils/profiling.py), tagged with the sources and those that
+nvcc compiled.
 """
 
 import ctypes
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from ..utils.profiling import span
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -75,8 +79,10 @@ def _finish(name: str, proc, out: str, tmp: str) -> str:
 
 def build_all() -> dict:
     """Compile every source concurrently (one nvcc each); returns {name: nvcc log}."""
-    with _lock:
+    with _lock, span("kernels.build") as build:
         started = {n: _start(n) for n in SOURCES}
+        build.tags = {"sources": list(SOURCES),
+                      "compiled": [n for n in SOURCES if started[n][0] is not None]}
         return {n: _finish(n, *started[n]) for n in SOURCES}
 
 
@@ -98,7 +104,9 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            proc, out, tmp = _start(name)
-            _finish(name, proc, out, tmp)
-            _libs[name] = ctypes.CDLL(out)
+            with span("kernels.build") as build:
+                proc, out, tmp = _start(name)
+                build.tags = {"sources": [name], "compiled": [name] if proc else []}
+                _finish(name, proc, out, tmp)
+                _libs[name] = ctypes.CDLL(out)
         return _libs[name]

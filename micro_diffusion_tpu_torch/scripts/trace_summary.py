@@ -15,6 +15,13 @@ of a step), and those with no launch event that start inside it. Busy time is th
 union of their intervals, idle time the rest of the window, so busy + idle = the
 window; the device ops' summed time exceeds the busy time by the overlap between
 streams. Every time is divided by ``--steps``.
+
+Where the trace holds the port's spans (``utils/profiling.py`` ``SPAN_NAMES``: under
+a profiler each span is a ``record_function`` scope of its name), the idle time is
+also split by span: each idle gap of the window goes to the innermost span open on
+the host at the gap's start, '(no span)' where none is. The gap's start is a device
+time; where the trace's device clock runs early (a kernel stamped before its own
+launch), it is moved by the largest such lead first.
 """
 
 import argparse
@@ -23,6 +30,9 @@ import gzip
 import json
 import re
 import sys
+from bisect import bisect_right
+
+from ..utils.profiling import SPAN_NAMES
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -84,12 +94,16 @@ def window(events, step: str | None = None) -> tuple:
     return (min(e["ts"] for e in timed), max(e["ts"] + e["dur"] for e in timed))
 
 
+def _launch_times(timed) -> dict:
+    return {e["args"]["correlation"]: e["ts"] for e in timed
+            if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+
+
 def device_ops(events, lo: float, hi: float) -> list:
     """The device's kernels, memcpys and memsets launched inside [lo, hi), or, with no
     launch event, starting inside it."""
     timed = _timed(events)
-    launched = {e["args"]["correlation"]: e["ts"] for e in timed
-                if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    launched = _launch_times(timed)
     return [e for e in timed if e.get("cat") in DEVICE_CATS
             and lo <= launched.get(e.get("args", {}).get("correlation"), e["ts"]) < hi]
 
@@ -105,6 +119,46 @@ def union_us(ops) -> float:
     return total
 
 
+def idle_gaps(ops, lo: float, hi: float) -> list:
+    """(start, end) of each interval of [lo, hi) that no op covers."""
+    gaps, end = [], lo
+    for o in sorted(ops, key=lambda o: o["ts"]):
+        if o["ts"] > end:
+            gaps.append((end, min(o["ts"], hi)))
+        end = max(end, o["ts"] + o["dur"])
+        if end >= hi:
+            break
+    if hi > end:
+        gaps.append((end, hi))
+    return [g for g in gaps if g[1] > g[0]]
+
+
+def idle_by_span(events, ops, lo: float, hi: float) -> dict:
+    """{span name: idle us} over the idle gaps of [lo, hi), each put down to the
+    innermost port span open on the host at its start ('(no span)' where none is);
+    empty when the trace holds no port span."""
+    timed = _timed(events)
+    scopes = sorted((e for e in timed if e.get("cat") == "user_annotation"
+                     and e["name"] in SPAN_NAMES), key=lambda e: e["ts"])
+    if not scopes:
+        return {}
+    launched = _launch_times(timed)
+    leads = [o["ts"] - launched[c] for o in ops
+             if (c := o.get("args", {}).get("correlation")) in launched]
+    early = min(min(leads, default=0.0), 0.0)  # the device clock's lead over the host's
+    starts = [e["ts"] for e in scopes]
+    out = collections.defaultdict(float)
+    for g0, g1 in idle_gaps(ops, lo, hi):
+        t = g0 - early
+        name = "(no span)"
+        for e in reversed(scopes[:bisect_right(starts, t)]):
+            if e["ts"] + e["dur"] >= t:  # the latest-starting span still open
+                name = e["name"]
+                break
+        out[name] += g1 - g0
+    return dict(out)
+
+
 def time_split(events, step: str | None = None, steps: int = 1) -> dict:
     """Window, busy, idle, the device ops' summed time and the overlap between
     streams, in ms a step; and the ops themselves."""
@@ -117,6 +171,7 @@ def time_split(events, step: str | None = None, steps: int = 1) -> dict:
             "idle_ms": (hi - lo - busy) * ms, "device_ms": total * ms,
             "overlap_ms": max(total - busy, 0.0) * ms, "launches": len(ops) / steps,
             "streams": len({o.get("args", {}).get("stream", o.get("tid")) for o in ops}),
+            "idle_by_span": {k: v * ms for k, v in idle_by_span(events, ops, lo, hi).items()},
             "ops": ops}
 
 
@@ -156,8 +211,15 @@ def table(rows: dict, total: float, top: int | None = None) -> list:
 
 
 def report(s: dict) -> list:
-    """The tables as lines: the split, the op classes, the top kernel names."""
-    return ([split_line(s), "by op class (ms a step, share of the device ops' time):"]
+    """The tables as lines: the split, idle by port span (where the trace has spans),
+    the op classes, the top kernel names."""
+    lines = [split_line(s)]
+    if s["idle_by_span"]:
+        idle = sum(s["idle_by_span"].values())
+        lines += ["idle by port span (ms a step, share of the idle gaps):"]
+        lines += [f"{ms:10.3f} ms {ms / idle if idle else 0.0:6.1%}  {name}" for name, ms
+                  in sorted(s["idle_by_span"].items(), key=lambda kv: -kv[1])]
+    return (lines + ["by op class (ms a step, share of the device ops' time):"]
             + table(s["by_class"], s["device_ms"])
             + [f"by kernel name, top {TOP}:"] + table(s["by_name"], s["device_ms"], TOP))
 

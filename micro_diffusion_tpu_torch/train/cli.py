@@ -31,6 +31,7 @@ import torch.distributed as dist
 from ..models.diffusion import text_encoder_embedding_format
 from ..parallel import init_distributed
 from ..parallel.mesh import DEFAULT_TIMEOUT_S
+from ..utils.profiling import span
 from .callbacks import Callback
 from .config import instantiate, load_config, resolve_target
 from .trainer import Trainer
@@ -129,11 +130,12 @@ def main(argv: Optional[List[str]] = None, callbacks: Sequence[Callback] = ()) -
                         help="seconds a collective may wait before the run fails")
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
-    cfg = load_config(args.config_path, args.config_name, args.overrides)
-    if args.multihost or "WORLD_SIZE" in os.environ:
-        init_distributed(_device(str(cfg["trainer"].get("device", "cuda"))),
-                         timeout=args.dist_timeout)
-    trainer = build_from_config(cfg, callbacks)
+    with span("entry.build"):  # the recipe to the built trainer
+        cfg = load_config(args.config_path, args.config_name, args.overrides)
+        if args.multihost or "WORLD_SIZE" in os.environ:
+            init_distributed(_device(str(cfg["trainer"].get("device", "cuda"))),
+                             timeout=args.dist_timeout)
+        trainer = build_from_config(cfg, callbacks)
     try:
         trainer.fit()
     finally:

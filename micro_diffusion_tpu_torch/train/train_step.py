@@ -33,6 +33,11 @@ takes this path, one process included.
 
 The EMA of this module lives in the state (the ``in_state`` and
 ``host_cadence`` placements); the off-state placements are train/host_ema.py.
+
+The step's parts are host spans of utils/profiling.py: ``step.forward`` and
+``step.backward`` per microbatch (the remat recompute runs in the backward),
+``step.accumulate`` (the gradients into the accumulator), ``step.update`` (mean,
+clip, AdamW, the in-state EMA) and, under a mesh, ``step.reduce``.
 """
 
 import dataclasses
@@ -43,6 +48,7 @@ import torch.distributed as dist
 from torch.nn.utils.stateless import _reparametrize_module
 
 from ..parallel.sharding import Zero2
+from ..utils.profiling import span
 from .optim import AdamState, AdamW, ema_update, global_norm
 
 FLOW_DTYPES = (torch.bfloat16, torch.float16)
@@ -111,16 +117,20 @@ def _loss_and_grads(model, params: dict, param_flow_dtype, microbatch: dict,
     backward and must read the same copies."""
     if param_flow_dtype is None:
         names = [n for n, p in params.items() if p.requires_grad]
-        loss, _, _ = model.forward(microbatch, generator=generator, train=True,
-                                   **(draws or {}))
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        with span("step.forward"):
+            loss, _, _ = model.forward(microbatch, generator=generator, train=True,
+                                       **(draws or {}))
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
         return loss.detach(), dict(zip(names, grads))
     flow = flow_params(params, param_flow_dtype)
     names = [n for n, p in flow.items() if p.requires_grad]
     with _reparametrize_module(model.dit, flow):
-        loss, _, _ = model.forward(microbatch, generator=generator, train=True,
-                                   **(draws or {}))
-        grads = torch.autograd.grad(loss, [flow[n] for n in names])
+        with span("step.forward"):
+            loss, _, _ = model.forward(microbatch, generator=generator, train=True,
+                                       **(draws or {}))
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, [flow[n] for n in names])
     return loss.detach(), dict(zip(names, grads))
 
 
@@ -150,8 +160,9 @@ def make_grad_step(model, param_flow_dtype: Optional[torch.dtype] = None) -> Cal
         loss, grads = _loss_and_grads(model, params, param_flow_dtype, microbatch,
                                       generator, draws)
         loss_sum, grad_sum = acc
-        for k, g in grads.items():
-            grad_sum[k].add_(g.to(grad_sum[k].dtype))
+        with span("step.accumulate"):
+            for k, g in grads.items():
+                grad_sum[k].add_(g.to(grad_sum[k].dtype))
         return loss_sum + loss, grad_sum
 
     return grad_step
@@ -171,6 +182,10 @@ def make_apply_step(tx: AdamW, lr_schedule: Callable, ema_smoothing: Optional[fl
     zero = grad_shardings
 
     def apply_step(state: TrainState, acc, n: int):
+        with span("step.update"):
+            return _apply(state, acc, n)
+
+    def _apply(state: TrainState, acc, n: int):
         loss_sum, grad_sum = acc
         loss = loss_sum / n
         # consumes the accumulator (JAX donates it): an fp32 sum is divided in place
@@ -187,12 +202,14 @@ def make_apply_step(tx: AdamW, lr_schedule: Callable, ema_smoothing: Optional[fl
             loss = loss.detach().clone()
             dist.all_reduce(loss, group=mesh.group("batch"))
             loss = loss / mesh.axis_size("batch")
-            grads = zero.reduce_gradients(grads)
+            with span("step.reduce"):
+                grads = zero.reduce_gradients(grads)
             grad_norm = global_norm([grads[k] for k in zero.norm_names],
                                     group=mesh.group("world"), device=loss.device)
             opt_state = tx.step(zero.param_shards(), grads, state.opt_state,
                                 grad_norm=grad_norm)
-            zero.gather_params()
+            with span("step.reduce"):
+                zero.gather_params()
         del grads
         ema = state.ema_params
         if ema is not None and ema_smoothing is not None:
@@ -273,7 +290,8 @@ def make_train_step(model, tx: AdamW, lr_schedule: Callable,
         if n == 1:  # no zeroed accumulator: the one gradient is the sum
             loss, grads = _loss_and_grads(model, params, param_flow_dtype, micro[0],
                                           generator, pick(0))
-            acc = (loss, {k: g.to(accum_dtype) for k, g in grads.items()})
+            with span("step.accumulate"):
+                acc = (loss, {k: g.to(accum_dtype) for k, g in grads.items()})
             del grads
         else:
             acc = zero_grad_accumulator(params, accum_dtype)

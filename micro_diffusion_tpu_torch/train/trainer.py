@@ -20,6 +20,10 @@
     and to the card on a side stream, which the step's stream waits for before
     use; never past ``max_duration``;
   * metrics stay on the card and are fetched every ``metric_window`` steps;
+  * each phase is a span of utils/profiling.py (``data.wait``, ``trainer.stage``,
+    ``train.step`` with device ends, ``trainer.ema``, ``trainer.metrics``,
+    ``trainer.eval``, ``trainer.save``), so ``spans()`` and a trace show where the
+    host was while the card waited;
   * eval over one epoch of the eval loader, with the EMA weights when there are;
   * checkpoints: ``torch.save`` of {step, params, opt_state, ema_params, loader}
     into ``<save_folder>/<step>/checkpoint.pt``, the newest
@@ -63,6 +67,7 @@ import torch.distributed as dist
 
 from ..models.interop import load_torch_checkpoint
 from ..parallel import Zero2, make_mesh, shard_params
+from ..utils.profiling import span
 from .callbacks import Callback, Logger
 from .optim import AdamState, build_optimizer, build_schedule
 from .host_ema import HostComputeEMA
@@ -396,16 +401,17 @@ class Trainer:
         cfg = self.ema_cfg
         if cfg is None or self.ema_placement == "in_state" or step % cfg["update_interval"]:
             return
-        if self.ema_placement == "host_cadence":
-            if step < cfg["ema_start"]:
-                self._mirror_ema()
-            else:
-                self.state = self._ema_step(self.state)
-        elif step >= cfg["ema_start"]:  # hostcompute: made by the first update
-            if self._hc_ema is None:
-                self._hc_ema = self._new_hc_ema(self.state.params)
-            else:
-                self._hc_ema.update(self.state.params)
+        with span("trainer.ema"):
+            if self.ema_placement == "host_cadence":
+                if step < cfg["ema_start"]:
+                    self._mirror_ema()
+                else:
+                    self.state = self._ema_step(self.state)
+            elif step >= cfg["ema_start"]:  # hostcompute: made by the first update
+                if self._hc_ema is None:
+                    self._hc_ema = self._new_hc_ema(self.state.params)
+                else:
+                    self._hc_ema.update(self.state.params)
 
     @torch.no_grad()
     def _mirror_ema(self) -> None:
@@ -476,17 +482,16 @@ class Trainer:
         return staged
 
     def _timed_batches(self):
-        """The train loader's batches, adding the host time spent waiting on it to
-        ``data_wait_s``."""
+        """The train loader's batches, each pull a ``data.wait`` span whose host time
+        is added to ``data_wait_s``."""
         it = iter(self.train_loader)
         try:
             while True:
-                t0 = time.perf_counter()
-                try:
-                    batch = next(it)
-                except StopIteration:
+                with span("data.wait") as wait:
+                    batch = next(it, None)
+                self.data_wait_s += wait.seconds
+                if batch is None:
                     return
-                self.data_wait_s += time.perf_counter() - t0
                 yield batch
         finally:
             close = getattr(it, "close", None)
@@ -503,7 +508,8 @@ class Trainer:
             batch = next(batches)
         except StopIteration:
             return None
-        return self._stage_batch(batch)
+        with span("trainer.stage"):
+            return self._stage_batch(batch)
 
     # ------------------------------------------------------------------ eval
 
@@ -567,8 +573,9 @@ class Trainer:
             grad_shardings=self.zero)
 
     def _train_one_batch(self, batch: Dict[str, torch.Tensor], step: int):
-        gen = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, step))
-        return self._step_fn(self.state, batch, gen)
+        with span("train.step", device=self.device, unit=step):
+            gen = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, step))
+            return self._step_fn(self.state, batch, gen)
 
     def fit(self) -> None:
         for cb in self.callbacks:
@@ -597,26 +604,31 @@ class Trainer:
                     else:
                         self._save_loader_state = None
                     if next_step % self.metric_window == 0 or next_step >= self.max_steps:
-                        host = {k: float(v) for k, v in metrics.items()}
-                        wait_ms = ((self.data_wait_s - last_wait) * 1e3
-                                   / max(1, next_step - last_wait_step))
-                        last_wait, last_wait_step = self.data_wait_s, next_step
-                        self.log({"loss/train/total": host["loss"],
-                                  "trainer/data_wait_ms_per_step": wait_ms,
-                                  **{f"trainer/{k}": v for k, v in host.items() if k != "loss"}})
-                        for cb in self.callbacks:
-                            cb.step_end(self, host)
+                        with span("trainer.metrics"):
+                            host = {k: float(v) for k, v in metrics.items()}
+                            wait_ms = ((self.data_wait_s - last_wait) * 1e3
+                                       / max(1, next_step - last_wait_step))
+                            last_wait, last_wait_step = self.data_wait_s, next_step
+                            self.log({"loss/train/total": host["loss"],
+                                      "trainer/data_wait_ms_per_step": wait_ms,
+                                      **{f"trainer/{k}": v for k, v in host.items()
+                                         if k != "loss"}})
+                            for cb in self.callbacks:
+                                cb.step_end(self, host)
                     if self.eval_interval and next_step % self.eval_interval == 0:
-                        self.evaluate()
+                        with span("trainer.eval"):
+                            self.evaluate()
                     if self.save_interval and next_step % self.save_interval == 0:
-                        self.save()
+                        with span("trainer.save"):
+                            self.save()
             finally:
                 batches.close()
             if not made_progress:
                 self.print(f"train loader exhausted at step {self.global_step} (before "
                            f"max_duration {self.max_steps}ba); stopping")
                 break
-        self.save()
+        with span("trainer.save"):
+            self.save()
         for cb in self.callbacks:
             cb.fit_end(self)
         self.print(f"fit complete: {self.global_step} steps in "

@@ -211,3 +211,26 @@ def test_real_cpu_trace_of_a_micro_forward(tmp_path):
     assert a["idle_ms"] == pytest.approx(a["window_ms"])
     assert not any(sum(d.values()) for d in a["buckets"].values())
     assert trace_summary.report(s) and attribute_trace.report(a)
+
+
+def test_trace_summary_puts_idle_gaps_down_to_port_spans():
+    """Each idle gap goes to the innermost port span open at its start, on the host's
+    clock: the device's stamps run 15 us early here (a kernel before its launch), so
+    every gap start moves 15 us later; a module scope is not a port span."""
+    ann = [("w", 0, 1100), ("train.step", 0, 600), ("step.forward", 10, 290),
+           ("nn.Module: model:DiT", 200, 100), ("trainer.stage", 650, 50),
+           ("trainer.metrics", 700, 200)]
+    ev = [_x("user_annotation", name, 1, ts, dur) for name, ts, dur in ann]
+    for corr, (launch, ts, dur) in enumerate([(20, 30, 170), (250, 260, 380),
+                                              (760, 745, 105), (905, 890, 110)]):
+        ev += [_launch(1, launch, corr), _kernel("elementwise_kernel", ts, dur, corr)]
+    s = trace_summary.summarize(ev, "w")
+    assert s["idle_ms"] == pytest.approx(0.335)
+    want = {"step.forward": 0.030 + 0.060, "trainer.stage": 0.105, "trainer.metrics": 0.040,
+            "(no span)": 0.100}
+    assert s["idle_by_span"].keys() == want.keys()
+    for name, ms in want.items():
+        assert s["idle_by_span"][name] == pytest.approx(ms), name
+    lines = trace_summary.report(s)
+    assert lines[1].startswith("idle by port span") and lines[2].endswith("trainer.stage")
+    assert trace_summary.summarize(synthetic_trace(), STEP)["idle_by_span"] == {}
